@@ -1,0 +1,44 @@
+"""State carried across from the JAX package: its limb planes and its
+signed G table, as numpy arrays, to and from the port's tensors.
+
+This system has no weights.  What the two packages share are
+
+- limb and digit planes: numpy [L, *batch] uint32 (the JAX layout, flat
+  [L, B] or tiled [L, B/128, 128]) <-> int32 [L, B] tensors;
+- the signed G table: numpy [33, 128, 2, 16] <-> int32 tensor.
+
+The tests feed both packages the same inputs through these functions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import limbs as lb
+
+
+def plane_to_torch(arr, device="cpu", dtype=lb.DTYPE) -> torch.Tensor:
+    """numpy [L, *batch] (flat or tiled) -> contiguous [L, B] tensor."""
+    arr = np.asarray(arr)
+    flat = arr.reshape(arr.shape[0], -1)
+    return torch.as_tensor(flat.astype(np.int64), device=device).to(dtype)
+
+
+def plane_from_torch(t: torch.Tensor, tiled: bool = False) -> np.ndarray:
+    """[L, B] tensor -> numpy uint32 [L, B], or [L, B/128, 128] if tiled."""
+    arr = t.detach().cpu().numpy().astype(np.uint32)
+    if tiled:
+        assert arr.shape[1] % 128 == 0
+        return arr.reshape(arr.shape[0], -1, 128)
+    return arr
+
+
+def table_to_torch(table, device="cpu") -> torch.Tensor:
+    """numpy [W, E, 2, 16] G table -> contiguous int32 tensor."""
+    return torch.as_tensor(np.asarray(table).astype(np.int64),
+                           device=device).to(lb.DTYPE).contiguous()
+
+
+def table_from_torch(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.uint32)

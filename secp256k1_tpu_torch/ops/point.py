@@ -1,0 +1,141 @@
+"""Batched secp256k1 group: complete projective formulas on limb planes.
+
+The port of `secp256k1_tpu.ops.point`: points are projective (X, Y, Z) with
+x = X/Z, y = Y/Z and identity (0, 1, 0), under the complete formulas of
+Renes-Costello-Batina 2015 (Algorithms 7, 8 and 9 with a = 0, b3 = 21),
+step for step in the order of the Pallas bodies `_point_add_body`,
+`_point_add_mixed_body` and `_point_double_body`.  Following the same steps
+is what makes the projective X, Y, Z equal to the JAX package's, and not
+only the affine point.
+
+Each formula takes the field ring to compute in: `fe.F` (the default)
+routes multiplies to the kernel wrappers; the plain versions of the point
+kernels pass `fe.F_PLAIN`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import field as fe
+
+B3 = 21  # 3*b for y^2 = x^3 + 7
+
+GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
+GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
+
+
+class Point(NamedTuple):
+    """Batch of projective points; each field an int32 [16, B] plane."""
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+
+def identity(batch_shape, device) -> Point:
+    return Point(fe.zero(batch_shape, device), fe.one(batch_shape, device),
+                 fe.zero(batch_shape, device))
+
+
+def generator(batch_shape, device) -> Point:
+    return Point(fe.const(GX, batch_shape, device).contiguous(),
+                 fe.const(GY, batch_shape, device).contiguous(),
+                 fe.one(batch_shape, device))
+
+
+def add(p: Point, q: Point, f=None) -> Point:
+    """Complete projective addition, RCB 2015 Algorithm 7 (a = 0).
+
+    The 12 multiplies fall into two rounds of six independent ones, and the
+    adds between them into a few more; each round is one batched ring op
+    (`ModRing.many`).  Every intermediate is the value that the step order
+    of `_point_add_body` computes (the step's name is in the comment)."""
+    f = f or fe.F
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    s1, s2, s3, s4, s5, s6 = f.many(
+        "add", (x1, y1), (x2, y2), (y1, z1), (y2, z2), (x1, z1), (x2, z2))
+    t0, t1, t2, m3, m4, m5 = f.many(
+        "mul", (x1, x2), (y1, y2), (z1, z2), (s1, s2), (s3, s4), (s5, s6))
+    u, v, w, dd = f.many("add", (t0, t1), (t1, t2), (t0, t2), (t0, t0))
+    t3, t4, y3 = f.many("sub", (m3, u), (m4, v), (m5, w))
+    t0b = f.add(dd, t0)                                  # t0 = 3*t0
+    t2b, y3b = f.mul_word(t2, B3), f.mul_word(y3, B3)
+    z3 = f.add(t1, t2b)
+    t1b = f.sub(t1, t2b)
+    xa, t2c, ya, t1c, t0c, za = f.many(
+        "mul", (t4, y3b), (t3, t1b), (y3b, t0b), (t1b, z3), (t0b, t3),
+        (z3, t4))
+    x3 = f.sub(t2c, xa)                                  # x3 = t2 - x3
+    y3c, z3c = f.many("add", (t1c, ya), (za, t0c))       # y3 = t1 + y3 ...
+    return Point(x3, y3c, z3c)
+
+
+def add_mixed(p: Point, qx, qy, f=None) -> Point:
+    """Mixed addition (Z2 = 1), RCB 2015 Algorithm 8, in the batched rounds
+    of `add`.  The affine addend cannot be the identity; callers mask the
+    digit-0 case."""
+    f = f or fe.F
+    x1, y1, z1 = p
+    x2, y2 = qx, qy
+    s1, s2 = f.many("add", (x2, y2), (x1, y1))
+    t0, t1, m3, a4, a5 = f.many(
+        "mul", (x1, x2), (y1, y2), (s1, s2), (y2, z1), (x2, z1))
+    t2 = f.mul_word(z1, B3)
+    u, t4, y3, dd, z3 = f.many(
+        "add", (t0, t1), (a4, y1), (a5, x1), (t0, t0), (t1, t2))
+    t3, t1b = f.many("sub", (m3, u), (t1, t2))
+    t0b = f.add(dd, t0)
+    y3b = f.mul_word(y3, B3)
+    xa, t2c, ya, t1c, t0c, za = f.many(
+        "mul", (t4, y3b), (t3, t1b), (y3b, t0b), (t1b, z3), (t0b, t3),
+        (z3, t4))
+    x3 = f.sub(t2c, xa)
+    y3c, z3c = f.many("add", (t1c, ya), (za, t0c))
+    return Point(x3, y3c, z3c)
+
+
+def double(p: Point, f=None) -> Point:
+    """Complete doubling, RCB 2015 Algorithm 9 (a = 0), in batched rounds
+    (the squares are products of equal operands: the same residues)."""
+    f = f or fe.F
+    x, y, z = p
+    t0, t1, t2, xy = f.many("mul", (y, y), (y, z), (z, z), (x, y))
+    z3 = f.add(t0, t0)
+    t2b = f.mul_word(t2, B3)
+    z3b, t2d, y3 = f.many("add", (z3, z3), (t2b, t2b), (t0, t2b))
+    z3c, t2e = f.many("add", (z3b, z3b), (t2d, t2b))    # z3 = 8*t0
+    t0b = f.sub(t0, t2e)
+    x3, z3d, y3b, x3b = f.many(
+        "mul", (t2b, z3c), (t1, z3c), (t0b, y3), (t0b, xy))
+    y3c, x3c = f.many("add", (x3, y3b), (x3b, x3b))
+    return Point(x3c, y3c, z3d)
+
+
+def negate(p: Point) -> Point:
+    return Point(p.x, fe.neg(p.y), p.z)
+
+
+def cneg(mask, p: Point) -> Point:
+    """Negate lanes where mask (branchless)."""
+    return Point(p.x, fe.cneg(mask, p.y), p.z)
+
+
+def select(mask, p: Point, q: Point) -> Point:
+    """Per-lane select: mask ? p : q."""
+    return Point(fe.select(mask, p.x, q.x), fe.select(mask, p.y, q.y),
+                 fe.select(mask, p.z, q.z))
+
+
+def is_identity(p: Point):
+    return fe.is_zero(p.z)
+
+
+def on_curve(p: Point):
+    """Projective curve membership: Y^2 Z == X^3 + 7 Z^3 (identity passes)."""
+    lhs = fe.mul(fe.square(p.y), p.z)
+    z3 = fe.mul(fe.square(p.z), p.z)
+    rhs = fe.add(fe.mul(fe.square(p.x), p.x), fe.mul_word(z3, 7))
+    return fe.eq(lhs, rhs)

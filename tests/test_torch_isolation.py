@@ -1,0 +1,110 @@
+"""The port stands alone and never hides the device.
+
+- Every module of `secp256k1_tpu_torch` imports without JAX and without the
+  JAX package (checked in a fresh interpreter).
+- Entry points default to the GPU and raise when there is none; only
+  `device="cpu"` runs the plain path.
+- A kernel wrapper takes the plain version only for CPU tensors.
+- `chip_smoke.py` fails, and prints no result, without a GPU or outside a
+  checkout.
+"""
+
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import secp256k1_tpu_torch
+from secp256k1_tpu_torch.models import ecdsa
+from secp256k1_tpu_torch.ops import field as fe
+from secp256k1_tpu_torch.ops.cuda import build
+from secp256k1_tpu_torch.ops.cuda import kernels as K
+from secp256k1_tpu_torch.utils import batching as bt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        secp256k1_tpu_torch.__path__, "secp256k1_tpu_torch."))
+
+
+def _run(code, cwd=REPO):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _modules()
+    assert "secp256k1_tpu_torch.models.ecdsa" in mods
+    assert "secp256k1_tpu_torch.ops.cuda.kernels" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'secp256k1_tpu' or "
+        "m.startswith('secp256k1_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _need_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+
+
+def test_entry_points_raise_without_a_gpu():
+    _need_no_gpu()
+    pubs = np.zeros((1, 33), np.uint8)
+    digs = np.zeros((1, 32), np.uint8)
+    sigs = np.zeros((1, 8), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ecdsa.verify_batch_arrays(pubs, digs, sigs)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ecdsa.verify_raw_batch_status([(1, 2)], [bytes(32)], [(1, 1)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bt.plane([1, 2], 16)
+    assert bt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    a = fe.one((4,), "cpu")
+    meta = torch.empty((16, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.mod_mul(a, meta, fe.P)
+    with pytest.raises(ValueError):
+        K.mod_square(meta, fe.P)
+    K.reset_counts()
+    assert torch.equal(K.mod_pow2k(a, 3, fe.P), a)
+    assert K.PLAIN_CALLS["mod_pow2k"] == 1 and K.LAUNCHES["mod_pow2k"] == 0
+
+
+def test_build_is_keyed_by_the_sources():
+    assert build.sources() == ["base", "glv", "modops"]
+    key = build.source_hash()
+    assert key == build.source_hash() and len(key) == 16
+    assert build.build_dir().startswith(
+        os.path.join(REPO, "build", "secp256k1_tpu_torch"))
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    _need_no_gpu()
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "kernels" not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
