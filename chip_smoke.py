@@ -15,8 +15,9 @@ the run with a non-zero exit code:
 2. build: compiles the five kernels from `ops/cuda/csrc` (one nvcc per
    source, in parallel) and prints the seconds and each kernel's registers;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   65,536 lanes (edge values included), bit-exact, with its time beside the
-   plain version's and its bound; the GLV and fixed-base results of a few
+   65,536 lanes (edge values included), bit-exact, with its device time
+   (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
+   events) and its bound; the GLV and fixed-base results of a few
    lanes also against python-int curve arithmetic;
 4. main path: `verify_batch_arrays` on 65,536 lanes with 33-byte keys and
    with 65-byte mixed keys, every status against the expected one, with the
@@ -70,6 +71,14 @@ KERNEL_META = {
                                              f"{PALLAS}:1135"),
     "base_windowed_add_final": (f"{CSRC}/base.cu", f"{PALLAS}:1070"),
 }
+# The __global__ function each wrapper launches (its profiler row).
+KERNEL_SYMBOL = {
+    "mod_mul": "k_mod_mul",
+    "mod_square": "k_mod_square",
+    "mod_pow2k": "k_mod_pow2k",
+    "glv_windowed_mult_signed_from_points": "k_glv_signed",
+    "base_windowed_add_final": "k_base_final",
+}
 
 
 def fail(msg: str) -> None:
@@ -101,6 +110,33 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """(mean device milliseconds of one launch, launches seen) of the CUDA
+    kernel whose name holds `kernel`, over reps calls of fn(), from
+    torch.profiler's device rows: the kernel alone, without the host's cost
+    of launching it.  The 50 MB L2 cache is flushed before each call, so
+    the kernel reads its inputs from HBM, as its byte bound assumes.  The
+    profiler may lose a few records of long kernels: the mean is over the
+    launches it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    count = sum(ev.count for ev in rows)
+    if count == 0:
+        fail(f"the profiler recorded no launch of {kernel}")
+    return sum(ev.self_device_time_total for ev in rows) / count / 1e3, count
 
 
 # ---------------------------------------------------------------------------
@@ -342,14 +378,22 @@ def kernel_checks(int_rate, curve, rng, device):
         return (t_ops, "operations") if t_ops >= t_bytes \
             else (t_bytes, "bytes")
 
-    def record(name, err, ms, plain_ms, products_total, bytes_total,
-               label):
-        b_ms, b_by = bound(products_total, bytes_total)
+    def record(name, err, call, plain_call, reps, plain_reps,
+               products_total, bytes_total, label):
+        """Check, then time: the kernel's device time (profiler), the
+        wrapper's and the plain version's time per call (CUDA events)."""
         if err != 0:
             fail(f"{label}: kernel differs from its plain version, max abs "
                  f"err {err}")
-        say(f"kernel {label}: bit-exact at {lanes} lanes, {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms), bound {b_ms:.4f} ms by {b_by}")
+        ms, seen = kernel_device_ms(call, reps, KERNEL_SYMBOL[name])
+        wrapper_ms = cuda_ms(call, reps)
+        plain_ms = cuda_ms(plain_call, plain_reps,
+                           warmup=1 if plain_reps > 1 else 0)
+        b_ms, b_by = bound(products_total, bytes_total)
+        say(f"kernel {label}: bit-exact at {lanes} lanes, {ms:.4f} ms device"
+            f" with a cold L2 (mean of {seen} of {reps} launches; wrapper "
+            f"call {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms), bound "
+            f"{b_ms:.4f} ms by {b_by}")
         prev = res.get(name)
         if prev is None:
             res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -379,22 +423,22 @@ def kernel_checks(int_rate, curve, rng, device):
         got = K.mod_mul(a, b, modulus)
         want = K.mod_mul_plain(a, b, modulus)
         record("mod_mul", max_abs_err([got], [want]),
-               cuda_ms(lambda: K.mod_mul(a, b, modulus), 50),
-               cuda_ms(lambda: K.mod_mul_plain(a, b, modulus), 5),
+               lambda: K.mod_mul(a, b, modulus),
+               lambda: K.mod_mul_plain(a, b, modulus), 50, 5,
                mul_c * lanes, 3 * lane_bytes * lanes, f"mod_mul mod {tag}")
         got = K.mod_square(a, modulus)
         want = K.mod_square_plain(a, modulus)
         record("mod_square", max_abs_err([got], [want]),
-               cuda_ms(lambda: K.mod_square(a, modulus), 50),
-               cuda_ms(lambda: K.mod_square_plain(a, modulus), 5),
+               lambda: K.mod_square(a, modulus),
+               lambda: K.mod_square_plain(a, modulus), 50, 5,
                sqr_c * lanes, 2 * lane_bytes * lanes,
                f"mod_square mod {tag}")
         for k in sorted({k_long, 2, 5}, reverse=True):
             got = K.mod_pow2k(a, k, modulus)
             want = K.mod_pow2k_plain(a, k, modulus)
             record("mod_pow2k", max_abs_err([got], [want]),
-                   cuda_ms(lambda: K.mod_pow2k(a, k, modulus), 20),
-                   cuda_ms(lambda: K.mod_pow2k_plain(a, k, modulus), 2),
+                   lambda: K.mod_pow2k(a, k, modulus),
+                   lambda: K.mod_pow2k_plain(a, k, modulus), 20, 2,
                    k * sqr_c * lanes, 2 * lane_bytes * lanes,
                    f"mod_pow2k k={k} mod {tag}")
 
@@ -419,10 +463,9 @@ def kernel_checks(int_rate, curve, rng, device):
         + int(((d1[1:] & 0xF) != 0).sum()) + int(((d2[1:] & 0xF) != 0).sum())
     doubles = (2 + 4 * (d1.shape[0] - 1)) * lanes
     record(name, max_abs_err(got, want),
-           cuda_ms(lambda: K.glv_windowed_mult_signed_from_points(
-               d1, d2, p1, p2), 5),
-           cuda_ms(lambda: K.glv_windowed_mult_signed_from_points_plain(
-               d1, d2, p1, p2), 1, warmup=0),
+           lambda: K.glv_windowed_mult_signed_from_points(d1, d2, p1, p2),
+           lambda: K.glv_windowed_mult_signed_from_points_plain(
+               d1, d2, p1, p2), 5, 1,
            adds * PT_ADD + doubles * PT_DOUBLE,
            (2 * d1.shape[0] * 4 + 9 * lane_bytes) * lanes, "glv")
     u2_ints = lb.limbs_to_int_batch(u2[:, :24])
@@ -439,11 +482,9 @@ def kernel_checks(int_rate, curve, rng, device):
     want = K.base_windowed_add_final_plain(digits, table, *u2p)
     mixed = int(((digits[1:] & 0xFFFF) != 0).sum())
     record(name, max_abs_err(got, want),
-           cuda_ms(lambda: K.base_windowed_add_final(digits, table, *u2p),
-                   10),
-           cuda_ms(lambda: K.base_windowed_add_final_plain(
-               digits, table, *u2p), 2),
-           mixed * PT_ADD_MIXED + lanes * PT_ADD,
+           lambda: K.base_windowed_add_final(digits, table, *u2p),
+           lambda: K.base_windowed_add_final_plain(digits, table, *u2p),
+           10, 2, mixed * PT_ADD_MIXED + lanes * PT_ADD,
            (digits.shape[0] * 4 + 6 * lane_bytes) * lanes
            + table.numel() * 4, "base")
     u1_ints = lb.limbs_to_int_batch(u1[:, :24])
@@ -561,11 +602,12 @@ def throughput(triples, arrays, device):
         f" at {LANES} lanes = {LANES / wall:.1f} verify/s; its host "
         f"strict-DER parse alone {parse * 1e3:.1f} ms (median of 5); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return med[LANES]
 
 
-def profile_core(triples, device, core_ms):
-    """Device time by kernel name over one _verify_impl call."""
+def profile_core(triples, device):
+    """Device time by kernel name over one _verify_impl call, and the idle
+    share of that call: 1 - device busy time / the span from its first
+    device activity's start to its last one's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from secp256k1_tpu_torch.models import ecdsa
@@ -582,11 +624,16 @@ def profile_core(triples, device, core_ms):
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA]
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e3
-    say(f"profile: _verify_impl at {LANES} lanes: {sum(r[2] for r in rows)} "
-        f"device kernels, device busy {busy:.3f} ms of {wall * 1e3:.3f} ms "
-        f"wall under the profiler ({core_ms:.3f} ms by CUDA events without "
-        f"it: idle share {max(0.0, 1 - busy / core_ms):.3f})")
+    spans = [ev.time_range for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    if not spans:
+        fail("profile: the profiler recorded no device activity")
+    busy = sum(s.elapsed_us() for s in spans) / 1e3
+    span = (max(s.end for s in spans) - min(s.start for s in spans)) / 1e3
+    say(f"profile: _verify_impl at {LANES} lanes under the profiler: "
+        f"{len(spans)} device activities, busy {busy:.3f} ms of a "
+        f"{span:.3f} ms device span ({wall * 1e3:.3f} ms host wall): idle "
+        f"share {1 - busy / span:.3f}")
     for dev_us, key, count in rows[:12]:
         say(f"profile:   {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:80]}")
 
@@ -608,9 +655,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     launches, arrays = main_path(triples, rng, curve.hc, wide=False)
     main_path(triples, rng, curve.hc, wide=True)
-    core_ms = throughput(triples, arrays, device)
+    throughput(triples, arrays, device)
     if "--profile" in sys.argv[1:]:
-        profile_core(triples, device, core_ms)
+        profile_core(triples, device)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "secp256k1_tpu.")))

@@ -65,7 +65,7 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all() -> dict:
     """Compile every source that has no library yet, all in parallel.
     Returns {name: path}.  Raises with the compiler output on failure."""
     global BUILD_SECONDS
@@ -92,8 +92,6 @@ def build_all(verbose: bool = False) -> dict:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
-        if verbose:
-            print(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     if procs or BUILD_SECONDS is None:

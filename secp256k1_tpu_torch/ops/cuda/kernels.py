@@ -91,10 +91,8 @@ def _c_limbs(modulus: int):
 
 def mod_mul_plain(a, b, modulus: int) -> torch.Tensor:
     """a * b mod m (m in {p, n}), canonical int32 [16, B]: the schoolbook
-    column sums (< 2^37), then `limbs.mod_reduce_columns`."""
-    cols = lb.product_columns(a, b)
-    return lb.mod_reduce_columns(cols, 37, _c_limbs(modulus),
-                                 lb.int_to_limbs(modulus)).to(lb.DTYPE)
+    product, then the Solinas fold, as the JAX ring's jnp path does."""
+    return lb.mod_fold(lb.mul_wide(a, b), _c_limbs(modulus)).to(lb.DTYPE)
 
 
 def mod_square_plain(a, modulus: int) -> torch.Tensor:

@@ -284,45 +284,20 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(mask.unsqueeze(0), a, b)
 
 
-def mod_fold(wide: torch.Tensor, c_limbs, n_subs: int = 1) -> torch.Tensor:
-    """Reduce `wide` mod m = 2^256 - c by Solinas folding (2^256 = c).
+def mod_fold(wide: torch.Tensor, c_limbs) -> torch.Tensor:
+    """Reduce `wide` ([W <= 32, *B], limbs < 2^16) mod m = 2^256 - c by
+    Solinas folding (2^256 = c), to the canonical [16, *B] residue, as
+    `secp256k1_tpu.ops.limbs.mod_fold` does.
 
-    The same fold schedule as `secp256k1_tpu.ops.limbs.mod_fold`: fold
-    `lo + hi*c` until 17 limbs, fold the 17th limb, then `n_subs`
-    conditional subtracts of m."""
-    c = np.asarray(c_limbs, dtype=np.int64)
-    c_int = limbs_to_int(c)
-    m_arr = int_to_limbs((1 << 256) - c_int, NLIMBS)
-    x = _w(wide)
-    while x.shape[0] > NLIMBS + 1:
-        hi = x[NLIMBS:]
-        lo = x[:NLIMBS]
-        prod = mul_const(hi, c)
-        x = add(lo, prod, max(NLIMBS, prod.shape[0]) + 1)
-    if x.shape[0] == NLIMBS:
-        x = pad_limbs(x, 0, 1)
-    x = add(x[:NLIMBS], mul_const(x[NLIMBS:], c), NLIMBS + 1)
-    m17 = np.zeros((NLIMBS + 1,), dtype=np.int64)
-    m17[:NLIMBS] = m_arr
-    for _ in range(n_subs):
-        x = cond_sub(x, m17)
-    return x[:NLIMBS]
-
-
-def mod_reduce_columns(cols: torch.Tensor, col_bits: int, c_limbs,
-                       m_limbs) -> torch.Tensor:
-    """Exact reduction mod m = 2^256 - c of a value < 2^512 given as
-    unnormalized non-negative columns [W <= 32, *B], each < 2^col_bits
-    (e.g. the column sums of a schoolbook product).  Returns the canonical
-    [16, *B] int64 residue.
-
-    The plain versions' fast path: the folds `lo + hi*c` run on limbs that
-    are only bounded by 2^16 (carry rounds, no exact carry resolution), and
-    the one exact normalization comes last, when the value is below 2m."""
-    c = const_plane(c_limbs, cols)
+    The folds `lo + hi*c` leave limbs only bounded by 2^16 (carry rounds,
+    no exact carry resolution); the one exact normalization comes last,
+    when the value is below 2m, before one conditional subtract of m."""
+    c_arr = np.asarray(c_limbs, dtype=np.int64)
+    c = const_plane(c_arr, wide)
     lc = c.shape[0]
-    cbits = limbs_to_int(np.asarray(c_limbs)).bit_length()
-    x, bits, vbits = _w(cols), col_bits, 512
+    cbits = limbs_to_int(c_arr).bit_length()
+    x = _w(wide)
+    bits, vbits = 16, LIMB_BITS * x.shape[0]
     while -(-vbits // LIMB_BITS) > NLIMBS + 1:
         lo, hi = x[:NLIMBS], x[NLIMBS:]
         prod = product_columns(hi, c)
@@ -342,6 +317,5 @@ def mod_reduce_columns(cols: torch.Tensor, col_bits: int, c_limbs,
         y[:lc] += x[NLIMBS].unsqueeze(0) * c
     _carry_rounds(y, 34)
     y = _resolve_unit_carries(y)[:NLIMBS + 1]
-    m17 = np.zeros((NLIMBS + 1,), dtype=np.int64)
-    m17[:NLIMBS] = np.asarray(m_limbs)[:NLIMBS]
+    m17 = int_to_limbs((1 << 256) - limbs_to_int(c_arr), NLIMBS + 1)
     return cond_sub(y, m17)[:NLIMBS]
