@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched ECDSA verify on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover and
+its BIP-0340 sign and verify on one NVIDIA GPU.
 
-Run from the root of a checkout, on a machine with a CUDA card and the CUDA
-toolkit (nvcc):
+Run from the root of a checkout, on a machine with a CUDA card, the CUDA
+toolkit (nvcc) and g++:
 
     python3 chip_smoke.py            # the checks and timings below
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown
@@ -12,19 +13,32 @@ JAX package) and runs, each phase printing its lines and any failure ending
 the run with a non-zero exit code:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the five kernels from `ops/cuda/csrc` (one nvcc per
-   source, in parallel) and prints the seconds and each kernel's registers;
+2. build: compiles the six kernels from `ops/cuda/csrc` (one nvcc per
+   source, in parallel) and the native host library (g++), and prints the
+   seconds and each kernel's registers;
 3. kernels: each kernel against its plain PyTorch version on the card at
    65,536 lanes (edge values included), bit-exact, with its device time
    (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
-   events) and its bound; the GLV and fixed-base results of a few
+   events) and its bound; the GLV and both fixed-base results of a few
    lanes also against python-int curve arithmetic;
-4. main path: `verify_batch_arrays` on 65,536 lanes with 33-byte keys and
-   with 65-byte mixed keys, every status against the expected one, with the
-   launch counts set to 0 before each call and read after it;
-5. throughput: verify/s of `_verify_impl` from planes, and end to end
-   (host parse included);
-6. a `kernels` JSON line, then the `ok` JSON line last.
+4. paths, each on 65,536 lanes with the launch counts set to 0 just before
+   it and read just after, failing if a kernel of that path was not
+   launched or a plain version was called:
+   - verify: `verify_batch_arrays` with 33-byte keys and with 65-byte mixed
+     keys, every status against the expected one;
+   - ECDSA sign: `sign_batch_arrays` (the 20 RFC 6979 vectors in the batch,
+     byte-exact; 256 lanes against a python-int signer), every signature
+     verified by `verify_batch_arrays`;
+   - recover: `recover_batch` gives back every lane's signer;
+   - keyed verify: `verify_batch_arrays_keyed` with corrupted lanes, every
+     status against the expected one;
+   - Schnorr: `sign_batch_arrays` (BIP-0340 vectors 0-3 in the batch,
+     byte-exact) and `verify_batch_arrays` (vectors 0-14 in the batch);
+5. throughput: verify/s of `_verify_impl` from planes and end to end (native
+   DER parse); sign/s end to end with the host DRBG apart and of
+   `_sign_e2e_core`; recover/s; keyed verify/s; Schnorr sign/s and verify/s;
+6. a `kernels` JSON line (launches summed over the paths, and per path),
+   then the `ok` JSON line last.
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ KERNEL_META = {
     "glv_windowed_mult_signed_from_points": (f"{CSRC}/glv.cu",
                                              f"{PALLAS}:1135"),
     "base_windowed_add_final": (f"{CSRC}/base.cu", f"{PALLAS}:1070"),
+    "base_windowed_add": (f"{CSRC}/base.cu", f"{PALLAS}:1041"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -78,7 +93,16 @@ KERNEL_SYMBOL = {
     "mod_pow2k": "k_mod_pow2k",
     "glv_windowed_mult_signed_from_points": "k_glv_signed",
     "base_windowed_add_final": "k_base_final",
+    "base_windowed_add": "k_base_scan",
 }
+# The kernels each path must launch.
+FIELD_KERNELS = ("mod_mul", "mod_square", "mod_pow2k")
+VERIFY_KERNELS = FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",
+                                  "base_windowed_add_final")
+SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
+PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
+PROFILE_ATTEMPTS = 5
+TESTDATA = os.path.join(HERE, "tests", "testdata")
 
 
 def fail(msg: str) -> None:
@@ -118,25 +142,29 @@ def kernel_device_ms(fn, reps: int, kernel: str):
     torch.profiler's device rows: the kernel alone, without the host's cost
     of launching it.  The 50 MB L2 cache is flushed before each call, so
     the kernel reads its inputs from HBM, as its byte bound assumes.  The
-    profiler may lose a few records of long kernels: the mean is over the
-    launches it recorded."""
+    profiler may lose records of launches, some or all of one session's:
+    the mean is over the launches it recorded, and a session that recorded
+    none is repeated, up to PROFILE_ATTEMPTS sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
-    count = sum(ev.count for ev in rows)
-    if count == 0:
-        fail(f"the profiler recorded no launch of {kernel}")
-    return sum(ev.self_device_time_total for ev in rows) / count / 1e3, count
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+        count = sum(ev.count for ev in rows)
+        if count:
+            return (sum(ev.self_device_time_total for ev in rows) / count
+                    / 1e3, count)
+    fail(f"the profiler recorded no launch of {kernel} in "
+         f"{PROFILE_ATTEMPTS} sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +199,12 @@ def import_port():
 
 
 def phase_build():
+    from secp256k1_tpu_torch import native
     from secp256k1_tpu_torch.ops.cuda import build
+    t0 = time.perf_counter()
+    native.lib()
+    say(f"build: native host library in {time.perf_counter() - t0:.2f} s "
+        f"at {native.library_path()}")
     build.build_all()
     say(f"build: {len(build.sources())} sources in "
         f"{build.BUILD_SECONDS:.2f} s into {build.build_dir()}")
@@ -490,6 +523,31 @@ def kernel_checks(int_rate, curve, rng, device):
     u1_ints = lb.limbs_to_int_batch(u1[:, :24])
     check_points(got, [hc.add(curve.g_mul(k), u2q[i])
                        for i, k in enumerate(u1_ints)], hc, "base")
+
+    # Constant-time fixed-base kernel: k*G from secret digits.  Beside the
+    # edge values: every byte 0x80 (the recoding carry runs through every
+    # window) and two scalars with zero windows.
+    ks = random_planes(rng, lanes, sc.N, device)
+    extra = [int("80" * 32, 16) % sc.N, (1 << 200) | 5,
+             int("01" + "00" * 30 + "01", 16)]
+    ks[:, 7:7 + len(extra)] = torch.as_tensor(
+        lb.int_to_limbs_batch(extra), dtype=torch.int32, device=device)
+    digits = tbl._signed_digits(ks).contiguous()
+    name = "base_windowed_add"
+    got = K.base_windowed_add(digits, table)
+    want = K.base_windowed_add_plain(digits, table)
+    products = int(((digits[1:] & 0xFFFF) != 0).sum()) * PT_ADD_MIXED
+    selects = digits.shape[0] * table.shape[1] * 16 * lanes
+    say(f"kernel base scan: {products} 32-bit products, {selects} masked "
+        f"selects (the bound takes the larger)")
+    record(name, max_abs_err(got, want),
+           lambda: K.base_windowed_add(digits, table),
+           lambda: K.base_windowed_add_plain(digits, table), 10, 1,
+           max(products, selects),
+           (digits.shape[0] * 4 + 3 * lane_bytes) * lanes
+           + table.numel() * 4, "base scan")
+    check_points(got, [curve.g_mul(k) for k in
+                       lb.limbs_to_int_batch(ks[:, :24])], hc, "base scan")
     say(f"pow2k: the longest run of squarings in the inversion and square "
         f"root chains is k={k_long}")
     return res
@@ -515,35 +573,248 @@ def check_points(planes, expect, hc, label):
 # Phase 4-5: main path and throughput.
 # ---------------------------------------------------------------------------
 
-def main_path(triples, rng, hc, wide):
-    from secp256k1_tpu_torch.models import ecdsa
+def run_path(label, kernels, fn):
+    """Drive one path: launch counts set to 0 just before fn(), read just
+    after.  Fails if a kernel of the path was not launched or a plain
+    version was called."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
-    pubs, digests, sigs, lens, expected = build_batch(
-        triples, LANES, wide, rng, hc)
     K.reset_counts()
-    got = ecdsa.verify_batch_arrays(pubs, digests, sigs, lens,
-                                    reject_malleable=True)
+    out = fn()
+    torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     plain = dict(K.PLAIN_CALLS)
-    label = f"{pubs.shape[1]}-byte keys"
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"path {label}: kernels not launched: {missing}")
+    if any(plain.values()):
+        fail(f"path {label}: plain versions called: {plain}")
+    PATH_LAUNCHES[label] = launches
+    say(f"path {label}: launches per {LANES}-lane batch "
+        f"{ {k: v for k, v in launches.items() if v} }; plain-version "
+        f"calls 0")
+    return out
+
+
+def check_statuses(label, got, expected):
     if got.shape != expected.shape:
-        fail(f"main path ({label}): status shape {got.shape}")
+        fail(f"path {label}: status shape {got.shape}")
     bad = np.nonzero(got != expected)[0]
     if bad.size:
-        fail(f"main path ({label}): {bad.size} lanes with a wrong status, "
-             f"first {bad[:5].tolist()}: got {got[bad[:5]].tolist()}, "
-             f"expected {expected[bad[:5]].tolist()}")
+        fail(f"path {label}: {bad.size} lanes with a wrong status, first "
+             f"{bad[:5].tolist()}: got {got[bad[:5]].tolist()}, expected "
+             f"{expected[bad[:5]].tolist()}")
     counts = {int(c): int((expected == c).sum()) for c in np.unique(expected)}
-    say(f"main path ({label}): verify_batch_arrays on {LANES} lanes, every "
-        f"status as expected {counts}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"main path ({label}): kernels not launched: {missing}")
-    if any(plain.values()):
-        fail(f"main path ({label}): plain versions called: {plain}")
-    say(f"main path ({label}): launches per {LANES}-lane verify batch "
-        f"{launches}; plain-version calls {plain}")
-    return launches, (pubs, digests, sigs, lens)
+    say(f"path {label}: every status as expected {counts}")
+
+
+def main_path(triples, rng, hc, wide):
+    from secp256k1_tpu_torch.models import ecdsa
+    pubs, digests, sigs, lens, expected = build_batch(
+        triples, LANES, wide, rng, hc)
+    label = f"verify ({pubs.shape[1]}-byte keys)"
+    got = run_path(label, VERIFY_KERNELS, lambda: ecdsa.verify_batch_arrays(
+        pubs, digests, sigs, lens, reject_malleable=True))
+    check_statuses(label, got, expected)
+    return pubs, digests, sigs, lens
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the signing paths.
+# ---------------------------------------------------------------------------
+
+def ints_of_rows(rows):
+    return [int.from_bytes(r.tobytes(), "big") for r in rows]
+
+
+def rows_of_ints(vals):
+    return np.frombuffer(b"".join(v.to_bytes(32, "big") for v in vals),
+                         np.uint8).reshape(-1, 32)
+
+
+def rfc6979_rows():
+    import csv
+    with open(os.path.join(TESTDATA, "secp256k1_rfc6979_sha256.csv")) as fh:
+        return [(int(r[0]), hashlib.sha256(r[1].encode()).digest(), r[2])
+                for r in csv.reader(fh) if r and not r[0].startswith("#")]
+
+
+def bip340_rows():
+    import csv
+    with open(os.path.join(TESTDATA, "bip-0340-test-vectors.csv")) as fh:
+        return list(csv.DictReader(fh))
+
+
+class Signers:
+    """N_DISTINCT seeded keys tiled over the lanes, the 20 RFC 6979 vector
+    keys on lanes 0-19, and a distinct seeded digest per lane (the
+    vectors' own on their lanes)."""
+
+    def __init__(self, curve, rng):
+        hc = curve.hc
+        self.kat = rfc6979_rows()
+        self.scalars = [int.from_bytes(rng.bytes(32), "big") % (hc.N - 1) + 1
+                        for _ in range(N_DISTINCT)] + [d for d, _, _ in
+                                                       self.kat]
+        self.points = [curve.g_mul(d) for d in self.scalars]
+        self.key_of = np.arange(LANES) % N_DISTINCT
+        self.key_of[:len(self.kat)] = N_DISTINCT + np.arange(len(self.kat))
+        self.priv = rows_of_ints(self.scalars)[self.key_of]
+        self.digests = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+        for j, (_, digest, _) in enumerate(self.kat):
+            self.digests[j] = np.frombuffer(digest, np.uint8)
+        cmp_rows = np.stack([np.frombuffer(hc.encode_point(p, True), np.uint8)
+                             for p in self.points])
+        self.pubs = cmp_rows[self.key_of]
+
+
+def python_sign(curve, d: int, digest: bytes):
+    """RFC 6979 ECDSA with python ints: (r, s, recovery id), low s."""
+    from secp256k1_tpu_torch.models.rfc6979 import DrbgRFC6979
+    n = curve.hc.N
+    e = int.from_bytes(digest, "big") % n
+    k = int.from_bytes(DrbgRFC6979(d.to_bytes(32, "big"),
+                                   e.to_bytes(32, "big")).read(32), "big")
+    big_r = curve.g_mul(k)
+    r = big_r[0] % n
+    s = pow(k, n - 2, n) * (e + r * d) % n
+    v = (big_r[1] & 1) | (2 if big_r[0] >= n else 0)
+    if s > n // 2:
+        s, v = n - s, v ^ 1
+    return r, s, v
+
+
+def der_rows(sigs):
+    """[n, 64] r || s rows -> ([n, 72] zero-padded DER rows, lens [n])."""
+    from secp256k1_tpu_torch.models import codecs
+    out = np.zeros((sigs.shape[0], 72), np.uint8)
+    lens = np.zeros((sigs.shape[0],), np.int32)
+    for i, row in enumerate(sigs):
+        der = codecs.build_asn1_signature(int.from_bytes(row[:32].tobytes(),
+                                                         "big"),
+                                          int.from_bytes(row[32:].tobytes(),
+                                                         "big"))
+        out[i, :len(der)] = np.frombuffer(der, np.uint8)
+        lens[i] = len(der)
+    return out, lens
+
+
+def ecdsa_sign_path(curve, signers, rng):
+    """ECDSA sign, the verify of its signatures, recover and keyed verify,
+    on the same 65,536 lanes."""
+    from secp256k1_tpu_torch.models import codecs, ecdsa, keys
+    from secp256k1_tpu_torch.utils import errors as ec
+    sigs, recid, status = run_path(
+        "ECDSA sign", SIGN_KERNELS,
+        lambda: ecdsa.sign_batch_arrays(signers.priv, signers.digests))
+    check_statuses("ECDSA sign", status, np.zeros_like(status))
+    for j, (_, _, want) in enumerate(signers.kat):
+        r, s = ints_of_rows(sigs[j].reshape(2, 32))
+        if codecs.build_asn1_signature(r, s).hex().upper() != want:
+            fail(f"ECDSA sign: RFC 6979 vector {j + 1} differs")
+    say(f"path ECDSA sign: the {len(signers.kat)} RFC 6979 vectors in the "
+        f"batch are byte-exact")
+    picks = rng.choice(np.arange(len(signers.kat), LANES), N_DISTINCT,
+                       replace=False)
+    for i in picks:
+        want = python_sign(curve, signers.scalars[signers.key_of[i]],
+                           signers.digests[i].tobytes())
+        got = (*ints_of_rows(sigs[i].reshape(2, 32)), int(recid[i]))
+        if got != want:
+            fail(f"ECDSA sign: lane {i} differs from the python-int signer")
+    say(f"path ECDSA sign: {len(picks)} lanes equal a python-int RFC 6979 "
+        f"signer (r, s and recovery id)")
+
+    ders, lens = der_rows(sigs)
+    got = run_path("verify of the signatures", VERIFY_KERNELS,
+                   lambda: ecdsa.verify_batch_arrays(
+                       signers.pubs, signers.digests, ders, lens,
+                       reject_malleable=True))
+    check_statuses("verify of the signatures", got, np.zeros_like(got))
+
+    triples = [(*ints_of_rows(sigs[i].reshape(2, 32)), int(recid[i]))
+               for i in range(LANES)]
+    digest_list = [d.tobytes() for d in signers.digests]
+    recovered = run_path("recover", VERIFY_KERNELS,
+                         lambda: ecdsa.recover_batch(digest_list, triples))
+    want_keys = [keys.PublicKey(p) for p in signers.points]
+    wrong = [i for i in range(LANES)
+             if recovered[i] != want_keys[signers.key_of[i]]]
+    if wrong:
+        fail(f"recover: {len(wrong)} lanes did not give back their signer, "
+             f"first {wrong[:5]}")
+    say(f"path recover: recover_batch gave back the signer on all {LANES} "
+        f"lanes")
+
+    cache = ecdsa.PubkeyCache(signers.points)
+    key_idx = signers.key_of.astype(np.int64)
+    digests = signers.digests.copy()
+    ders_k = ders.copy()
+    expected = np.full((LANES,), ec.OK, np.int32)
+    lanes = rng.permutation(np.arange(len(signers.kat), LANES))
+    per_kind = LANES // 1024
+    kinds = [lanes[i * per_kind:(i + 1) * per_kind] for i in range(4)]
+    key_idx[kinds[0]] = cache.n_keys + kinds[0] % 7       # index past the end
+    expected[kinds[0]] = ec.ERR_INVALID_PUBLIC_KEY
+    key_idx[kinds[1]] = -1 - kinds[1] % 3                 # negative index
+    expected[kinds[1]] = ec.ERR_INVALID_PUBLIC_KEY
+    digests[kinds[2], 7] ^= 0x01                          # flipped digest bit
+    expected[kinds[2]] = ec.ERR_V_NEQ_R
+    ders_k[kinds[3], 0] = 0x31                            # malformed DER
+    expected[kinds[3]] = ec.ERR_INVALID_ENCODING
+    got = run_path("keyed verify", VERIFY_KERNELS,
+                   lambda: ecdsa.verify_batch_arrays_keyed(
+                       cache, key_idx, digests, ders_k, lens,
+                       reject_malleable=True))
+    check_statuses("keyed verify", got, expected)
+    return sigs, recid, ders, lens, cache
+
+
+def schnorr_path(curve, signers, rng):
+    """BIP-0340 sign and verify on 65,536 lanes: vectors 0-3 signed in the
+    batch, vectors 0-14 verified in it."""
+    from secp256k1_tpu_torch.models import schnorr
+    rows = bip340_rows()
+    priv = signers.priv.copy()
+    msgs = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    aux = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    x_only = np.stack([np.frombuffer(p[0].to_bytes(32, "big"), np.uint8)
+                       for p in signers.points])
+    pub_x = x_only[signers.key_of]
+    signed = [r for r in rows if r["secret key"] and len(r["message"]) == 64]
+    for j, r in enumerate(signed):
+        priv[j] = np.frombuffer(bytes.fromhex(r["secret key"]), np.uint8)
+        msgs[j] = np.frombuffer(bytes.fromhex(r["message"]), np.uint8)
+        aux[j] = np.frombuffer(bytes.fromhex(r["aux_rand"]), np.uint8)
+        pub_x[j] = np.frombuffer(bytes.fromhex(r["public key"]), np.uint8)
+    sigs, status = run_path(
+        "Schnorr sign", SIGN_KERNELS,
+        lambda: schnorr.sign_batch_arrays(priv, msgs, aux))
+    check_statuses("Schnorr sign", status, np.zeros_like(status))
+    if PATH_LAUNCHES["Schnorr sign"]["base_windowed_add"] != 3:
+        fail("Schnorr sign: expected 3 launches of base_windowed_add")
+    for j, r in enumerate(signed):
+        if sigs[j].tobytes().hex().upper() != r["signature"]:
+            fail(f"Schnorr sign: BIP-0340 vector {r['index']} differs")
+    say(f"path Schnorr sign: BIP-0340 vectors "
+        f"{[r['index'] for r in signed]} in the batch are byte-exact")
+
+    expected = np.ones((LANES,), bool)
+    listed = [r for r in rows if len(r["message"]) == 64]
+    for j, r in enumerate(listed):
+        pub_x[j] = np.frombuffer(bytes.fromhex(r["public key"]), np.uint8)
+        msgs[j] = np.frombuffer(bytes.fromhex(r["message"]), np.uint8)
+        sigs[j] = np.frombuffer(bytes.fromhex(r["signature"]), np.uint8)
+        expected[j] = r["verification result"] == "TRUE"
+    got = run_path("Schnorr verify", VERIFY_KERNELS,
+                   lambda: schnorr.verify_batch_arrays(pub_x, msgs, sigs))
+    bad = np.nonzero(got != expected)[0]
+    if bad.size:
+        fail(f"Schnorr verify: {bad.size} lanes wrong, first "
+             f"{bad[:5].tolist()}")
+    say(f"path Schnorr verify: all {LANES} lanes as expected (BIP-0340 "
+        f"vectors {listed[0]['index']}-{listed[-1]['index']} in the batch, "
+        f"{int((~expected).sum())} of them false)")
+    return priv, msgs, aux, pub_x, sigs
 
 
 def core_planes(triples, lanes, device):
@@ -604,20 +875,119 @@ def throughput(triples, arrays, device):
         f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
-def profile_core(triples, device):
-    """Device time by kernel name over one _verify_impl call, and the idle
-    share of that call: 1 - device busy time / the span from its first
-    device activity's start to its last one's end."""
+def wall_ms(fn, reps: int):
+    """(median, min, max) host milliseconds of fn() ending in a device
+    synchronize, over reps calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def median_cuda_ms(fn, reps: int = 7):
+    times = sorted(cuda_ms(fn, 1, warmup=0) for _ in range(reps))
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def signing_throughput(signers, ecdsa_out, schnorr_out, device):
+    """sign/s end to end with the host DRBG apart, the device sign core,
+    recover/s, keyed verify/s, Schnorr sign/s and verify/s.  Returns the
+    sign core's byte planes."""
+    from secp256k1_tpu_torch import native
+    from secp256k1_tpu_torch.models import ecdsa, schnorr
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import scalar as sc
+    from secp256k1_tpu_torch.utils import batching as bt
+    sigs, recid, ders, lens, cache = ecdsa_out
+    priv, digests = signers.priv, signers.digests
+
+    def rate(ms):
+        return LANES / ms * 1e3
+
+    e_arr = ecdsa._reduce_digest_np(digests)
+    drbg = wall_ms(lambda: native.rfc6979_nonce_batch(priv, e_arr), 3)
+    sign = wall_ms(lambda: ecdsa.sign_batch_arrays(priv, digests), 3)
+    k_arr = native.rfc6979_nonce_batch(priv, e_arr)[0]
+    planes = [bt.byte_plane_np(a, LANES, device)
+              for a in (k_arr, e_arr, priv)]
+    core = median_cuda_ms(lambda: ecdsa._sign_e2e_core(*planes))
+    say(f"throughput: ECDSA sign_batch_arrays end to end {sign[0]:.1f} ms "
+        f"(median of 3, range {sign[1]:.1f}-{sign[2]:.1f}) at {LANES} "
+        f"lanes = {rate(sign[0]):.1f} sign/s; its host RFC 6979 DRBG alone "
+        f"{drbg[0]:.1f} ms (median of 3); _sign_e2e_core from byte planes "
+        f"{core[0]:.3f} ms (median of 7, range {core[1]:.3f}-{core[2]:.3f})"
+        f" = {rate(core[0]):.1f} sign/s")
+
+    r_bytes = bt.byte_plane_np(sigs[:, :32], LANES, device)
+    recids = torch.as_tensor(recid, device=device)
+    e, _ = sc.S.from_bytes_any(bt.byte_plane_np(digests, LANES, device))
+    r = sc.S._bytes_to_limbs(r_bytes).to(lb.DTYPE)
+    s = sc.S._bytes_to_limbs(bt.byte_plane_np(sigs[:, 32:], LANES,
+                                              device)).to(lb.DTYPE)
+    rec_core = median_cuda_ms(lambda: ecdsa._recover_core(r_bytes, recids,
+                                                          e, r, s))
+    triples = [(int.from_bytes(sigs[i, :32].tobytes(), "big"),
+                int.from_bytes(sigs[i, 32:].tobytes(), "big"), int(recid[i]))
+               for i in range(LANES)]
+    digest_list = [d.tobytes() for d in digests]
+    rec = wall_ms(lambda: ecdsa.recover_batch(digest_list, triples), 1)
+    say(f"throughput: _recover_core from planes {rec_core[0]:.3f} ms "
+        f"(median of 7, range {rec_core[1]:.3f}-{rec_core[2]:.3f}) = "
+        f"{rate(rec_core[0]):.1f} recover/s; recover_batch end to end "
+        f"(python ints in, PublicKey objects out) {rec[0]:.1f} ms = "
+        f"{rate(rec[0]):.1f} recover/s")
+
+    keyed = wall_ms(lambda: ecdsa.verify_batch_arrays_keyed(
+        cache, signers.key_of, digests, ders, lens, reject_malleable=True), 5)
+    say(f"throughput: verify_batch_arrays_keyed end to end {keyed[0]:.1f} ms"
+        f" (median of 5, range {keyed[1]:.1f}-{keyed[2]:.1f}) = "
+        f"{rate(keyed[0]):.1f} verify/s")
+
+    s_priv, s_msgs, s_aux, s_pub_x, s_sigs = schnorr_out
+    ssign = wall_ms(lambda: schnorr.sign_batch_arrays(s_priv, s_msgs, s_aux),
+                    3)
+    sver = wall_ms(lambda: schnorr.verify_batch_arrays(s_pub_x, s_msgs,
+                                                       s_sigs), 5)
+
+    def sign_host():
+        # The host work of Schnorr sign_batch_arrays: three native tagged
+        # hashes (aux, nonce, challenge), the last two reduced mod n.
+        schnorr._tagged_hash_rows(schnorr.TAG_AUX, [s_aux], LANES)
+        for tag, parts in ((schnorr.TAG_NONCE, [s_aux, s_pub_x, s_msgs]),
+                           (schnorr.TAG_CHALLENGE,
+                            [s_sigs[:, :32], s_pub_x, s_msgs])):
+            ecdsa._reduce_digest_np(schnorr._tagged_hash_rows(tag, parts,
+                                                              LANES))
+    host = wall_ms(sign_host, 3)
+    hver = wall_ms(lambda: schnorr._tagged_hash_rows(
+        schnorr.TAG_CHALLENGE, [s_sigs[:, :32], s_pub_x, s_msgs], LANES), 3)
+    say(f"throughput: Schnorr sign_batch_arrays end to end {ssign[0]:.1f} ms"
+        f" (median of 3, range {ssign[1]:.1f}-{ssign[2]:.1f}) = "
+        f"{rate(ssign[0]):.1f} sign/s, its host tagged hashes and digest "
+        f"reductions alone {host[0]:.1f} ms; verify_batch_arrays "
+        f"{sver[0]:.1f} ms (median of 5, range {sver[1]:.1f}-{sver[2]:.1f}) "
+        f"= {rate(sver[0]):.1f} verify/s, its host tagged hash alone "
+        f"{hver[0]:.1f} ms")
+    return planes
+
+
+def profile_core(label, fn):
+    """Device time by kernel name over one fn() call, and the idle share of
+    that call: 1 - device busy time / the span from its first device
+    activity's start to its last one's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from secp256k1_tpu_torch.models import ecdsa
-    args = core_planes(triples, LANES, device)
-    ecdsa._verify_impl(*args)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        ecdsa._verify_impl(*args)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(ev.self_device_time_total, ev.key, ev.count)
@@ -630,7 +1000,7 @@ def profile_core(triples, device):
         fail("profile: the profiler recorded no device activity")
     busy = sum(s.elapsed_us() for s in spans) / 1e3
     span = (max(s.end for s in spans) - min(s.start for s in spans)) / 1e3
-    say(f"profile: _verify_impl at {LANES} lanes under the profiler: "
+    say(f"profile: {label} at {LANES} lanes under the profiler: "
         f"{len(spans)} device activities, busy {busy:.3f} ms of a "
         f"{span:.3f} ms device span ({wall * 1e3:.3f} ms host wall): idle "
         f"share {1 - busy / span:.3f}")
@@ -651,13 +1021,23 @@ def main():
 
     t0 = time.perf_counter()
     triples = make_triples(curve, rng)
-    say(f"main path: {len(triples)} distinct signatures made in "
+    signers = Signers(curve, rng)
+    say(f"paths: {len(triples)} distinct signatures and "
+        f"{len(signers.scalars)} signing keys made in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches, arrays = main_path(triples, rng, curve.hc, wide=False)
+    arrays = main_path(triples, rng, curve.hc, wide=False)
     main_path(triples, rng, curve.hc, wide=True)
+    ecdsa_out = ecdsa_sign_path(curve, signers, rng)
+    schnorr_out = schnorr_path(curve, signers, rng)
     throughput(triples, arrays, device)
+    sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
     if "--profile" in sys.argv[1:]:
-        profile_core(triples, device)
+        from secp256k1_tpu_torch.models import ecdsa
+        verify_planes = core_planes(triples, LANES, device)
+        profile_core("_verify_impl",
+                     lambda: ecdsa._verify_impl(*verify_planes))
+        profile_core("_sign_e2e_core",
+                     lambda: ecdsa._sign_e2e_core(*sign_planes))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "secp256k1_tpu.")))
@@ -666,8 +1046,15 @@ def main():
     kernels = []
     for name in K.KERNELS:
         src, replaces = KERNEL_META[name]
+        per_path = {label: counts[name]
+                    for label, counts in PATH_LAUNCHES.items()
+                    if counts[name]}
+        if not per_path:
+            fail(f"{name} was launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(per_path.values()),
+                        "launches_per_path": per_path,
                         **res[name], "library_ms": None})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ This system has no weights.  What the two packages share are
 
 - limb and digit planes: numpy [L, *batch] uint32 (the JAX layout, flat
   [L, B] or tiled [L, B/128, 128]) <-> int32 [L, B] tensors;
-- the signed G table: numpy [33, 128, 2, 16] <-> int32 tensor.
+- the signed G table: numpy [33, 128, 2, 16] <-> int32 tensor;
+- a keyed-verify `PubkeyCache`: its affine key planes qx, qy, numpy
+  [16, K] -> the port's cache.
 
 The tests feed both packages the same inputs through these functions.
 """
@@ -42,3 +44,14 @@ def table_to_torch(table, device="cpu") -> torch.Tensor:
 
 def table_from_torch(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def pubkey_cache_to_torch(qx, qy, device="cpu"):
+    """The JAX package's `PubkeyCache` state, its affine planes qx, qy
+    (numpy [16, K]), -> the port's `models.ecdsa.PubkeyCache` on `device`.
+    The port's cache validates every key on the curve, so a key the JAX
+    cache took unchecked raises here."""
+    from .models import ecdsa
+    xs = lb.limbs_to_int_batch(np.asarray(qx).astype(np.int64))
+    ys = lb.limbs_to_int_batch(np.asarray(qy).astype(np.int64))
+    return ecdsa.PubkeyCache(list(zip(xs, ys)), device=device)

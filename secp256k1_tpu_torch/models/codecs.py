@@ -1,15 +1,22 @@
-"""Host-side signature codecs: strict DER.
+"""Host-side signature and key codecs: strict DER, compact, SPKI.
 
-A copy of the signature part of `secp256k1_tpu.models.codecs` (the port
-never imports the JAX package): DER-minimal lengths, positive minimal
-INTEGERs, no trailing data, scalars in [1, n).  The JAX package uses this
-pure-Python parse when its native library is missing, with the same status
-taxonomy; the port's batched C++ parser is still to come.
+A copy of `secp256k1_tpu.models.codecs` (the port never imports the JAX
+package): DER-minimal lengths, positive minimal INTEGERs, no trailing data,
+scalars in [1, n).  The batched entry points parse DER with the native
+library (`secp256k1_tpu_torch.native`); `parse_asn1_signature` here is the
+per-signature parse of the list APIs and the tests' plain reference, with
+the same status classes.
 """
 
 from __future__ import annotations
 
 N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+
+COMPACT_SIGNATURE_SIZE = 64
+COMPACT_RECOVERABLE_SIGNATURE_SIZE = 65
+
+OID_EC_PUBLIC_KEY = (1, 2, 840, 10045, 2, 1)
+OID_SECP256K1 = (1, 3, 132, 0, 10)
 
 
 class CodecError(ValueError):
@@ -104,4 +111,101 @@ def parse_asn1_signature(sig: bytes):
 
 def build_asn1_signature(r: int, s: int) -> bytes:
     body = _encode_der_integer(r) + _encode_der_integer(s)
+    return b"\x30" + _encode_der_len(len(body)) + body
+
+
+# ---------------------------------------------------------------------------
+# Compact signatures: r || s, and r || s || recovery id.
+# ---------------------------------------------------------------------------
+
+def parse_compact_signature(sig: bytes):
+    if len(sig) != COMPACT_SIGNATURE_SIZE:
+        raise CodecError("bad compact signature size")
+    return (_scalar_from_int(int.from_bytes(sig[:32], "big")),
+            _scalar_from_int(int.from_bytes(sig[32:64], "big")))
+
+
+def build_compact_signature(r: int, s: int) -> bytes:
+    return r.to_bytes(32, "big") + s.to_bytes(32, "big")
+
+
+def parse_compact_recoverable_signature(sig: bytes):
+    if len(sig) != COMPACT_RECOVERABLE_SIGNATURE_SIZE:
+        raise CodecError("bad recoverable signature size")
+    r, s = parse_compact_signature(sig[:64])
+    return r, s, sig[64]
+
+
+def build_compact_recoverable_signature(r: int, s: int, v: int) -> bytes:
+    return build_compact_signature(r, s) + bytes([v])
+
+
+# ---------------------------------------------------------------------------
+# SubjectPublicKeyInfo (SEC1 C.3 subset) public keys.
+# ---------------------------------------------------------------------------
+
+def _encode_oid(oid) -> bytes:
+    body = bytearray([40 * oid[0] + oid[1]])
+    for arc in oid[2:]:
+        chunk = bytearray([arc & 0x7F])
+        arc >>= 7
+        while arc:
+            chunk.append(0x80 | (arc & 0x7F))
+            arc >>= 7
+        body.extend(reversed(chunk))
+    return b"\x06" + _encode_der_len(len(body)) + bytes(body)
+
+
+def _decode_oid(contents: bytes):
+    if not contents:
+        raise CodecError("empty OID")
+    out = [contents[0] // 40, contents[0] % 40]
+    arc = 0
+    arc_start = True
+    for b in contents[1:]:
+        if arc_start and b == 0x80:
+            raise CodecError("non-minimal OID arc")
+        arc = (arc << 7) | (b & 0x7F)
+        arc_start = False
+        if not b & 0x80:
+            out.append(arc)
+            arc = 0
+            arc_start = True
+    if not arc_start:
+        raise CodecError("truncated OID arc")
+    return tuple(out)
+
+
+def parse_asn1_public_key_bytes(data: bytes) -> bytes:
+    """The SEC1-encoded point bytes of an SPKI structure."""
+    tag, outer, end = _read_tlv(data, 0)
+    if tag != 0x30 or end != len(data):
+        raise CodecError("bad SPKI SEQUENCE")
+    tag, algo, off = _read_tlv(outer, 0)
+    if tag != 0x30:
+        raise CodecError("bad AlgorithmIdentifier")
+    tag, bitstr, off = _read_tlv(outer, off)
+    if tag != 0x03 or off != len(outer):
+        raise CodecError("bad subjectPublicKey")
+    tag, oid1, aoff = _read_tlv(algo, 0)
+    if tag != 0x06:
+        raise CodecError("bad algorithm OID")
+    tag, oid2, aoff = _read_tlv(algo, aoff)
+    if tag != 0x06 or aoff != len(algo):
+        raise CodecError("bad curve OID")
+    if _decode_oid(oid1) != OID_EC_PUBLIC_KEY:
+        raise CodecError("algorithm is not ecPublicKey")
+    if _decode_oid(oid2) != OID_SECP256K1:
+        raise CodecError("named curve is not secp256k1")
+    if len(bitstr) == 0 or bitstr[0] != 0:
+        raise CodecError("bad BIT STRING padding")
+    return bitstr[1:]
+
+
+def build_asn1_public_key(point_bytes: bytes) -> bytes:
+    algo = _encode_oid(OID_EC_PUBLIC_KEY) + _encode_oid(OID_SECP256K1)
+    algo_tlv = b"\x30" + _encode_der_len(len(algo)) + algo
+    bitstr = b"\x03" + _encode_der_len(len(point_bytes) + 1) + b"\x00" \
+        + point_bytes
+    body = algo_tlv + bitstr
     return b"\x30" + _encode_der_len(len(body)) + body

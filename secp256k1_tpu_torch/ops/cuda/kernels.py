@@ -1,10 +1,11 @@
-"""The verify path's five kernels: wrappers, plain versions, launch counts.
+"""The port's six kernels: wrappers, plain versions, launch counts.
 
-Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` that ECDSA verify
-reaches has here
+Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` that ECDSA verify,
+sign and recover and BIP-0340 sign and verify reach has here
 
 - a wrapper (`mod_mul`, `mod_square`, `mod_pow2k`,
-  `glv_windowed_mult_signed_from_points`, `base_windowed_add_final`): given
+  `glv_windowed_mult_signed_from_points`, `base_windowed_add_final`,
+  `base_windowed_add`): given
   CPU tensors it runs the plain version; given CUDA tensors it launches the
   hand-written CUDA kernel (`csrc/*.cu`, built by `build.py`) or raises.
   There is no fallback from the kernel to the plain version;
@@ -33,7 +34,8 @@ N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
 MOD_ID = {P: 0, N: 1}
 
 KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
-           "glv_windowed_mult_signed_from_points", "base_windowed_add_final")
+           "glv_windowed_mult_signed_from_points", "base_windowed_add_final",
+           "base_windowed_add")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -156,41 +158,78 @@ def glv_windowed_mult_signed_from_points_plain(d1, d2, p1, p2):
     return acc.x, acc.y, acc.z
 
 
-def base_windowed_add_final_plain(digits, table, qx, qy, qz):
-    """(sum over windows of table[w][|d_w| - 1], y negated for negative
-    digits) + Q, the function of the Pallas
-    `_base_windowed_add_kernel(signed_digits=True, final_add=True)` with
-    the per-window selection done by a gather instead of the TPU's one-hot
-    matmul.
-
-    digits: int32 [W, B], magnitude (bits 0-15) | sign << 16, least
-    significant window first; table: int32 [W, E, 2, 16] affine multiples
-    of G.  Window 0 is a select (identity where the magnitude is 0); later
-    windows are mixed adds, passed through where the magnitude is 0; a
-    complete add of Q ends it.  Returns canonical (x, y, z) planes."""
+def _base_accumulate_plain(digits, entry):
+    """Sum over windows of the selected affine entries, the loop of the
+    Pallas `_base_windowed_add_kernel(signed_digits=True)`: window 0 is a
+    select (the whole identity where the magnitude is 0, even with the sign
+    bit set); later windows are mixed adds, passed through where the
+    magnitude is 0.  entry(w, mag) -> (x, y) planes of table[w][mag - 1]
+    (anything where mag is 0); y is negated here for a set sign bit."""
     from .. import field as fe
     from .. import point as pt
     f = fe.F_PLAIN
     mag = digits & 0xFFFF
     neg = (digits >> 16) == 1
-    idx = (mag - 1).clamp(min=0).long()
 
-    def entry(w):
-        ent = table[w].index_select(0, idx[w])         # [B, 2, 16]
-        x = ent[:, 0].t().contiguous()
-        y = ent[:, 1].t().contiguous()
+    def signed_entry(w):
+        x, y = entry(w, mag[w])
         return x, f.select(neg[w], f.neg(y), y)
 
-    x0, y0 = entry(0)
+    x0, y0 = signed_entry(0)
     is0 = mag[0] == 0
     zero = torch.zeros_like(x0)
     one = f.one(zero.shape[1:], zero.device)
     acc = pt.Point(f.select(is0, zero, x0), f.select(is0, one, y0),
                    f.select(is0, zero, one))
     for w in range(1, digits.shape[0]):
-        x, y = entry(w)
+        x, y = signed_entry(w)
         acc = pt.select(mag[w] == 0, acc, pt.add_mixed(acc, x, y, f))
-    out = pt.add(acc, pt.Point(qx, qy, qz), f)
+    return acc
+
+
+def base_windowed_add_plain(digits, table):
+    """k*G = sum over windows of table[w][|d_w| - 1], y negated for negative
+    digits: the function of the Pallas `base_windowed_add`
+    (`_base_windowed_add_kernel(signed_digits=True, final_add=False)`).
+
+    digits: int32 [W, B], magnitude (bits 0-15) | sign << 16, least
+    significant window first (the digits of a secret scalar); table: int32
+    [W, E, 2, 16] affine multiples of G.  Each window's entry is a one-hot
+    masked sum over all E entries, never an index by the digit.  Returns
+    canonical (x, y, z) planes."""
+    n_entries = table.shape[1]
+    ids = torch.arange(1, n_entries + 1, dtype=digits.dtype,
+                       device=digits.device).unsqueeze(1)
+
+    def entry(w, mag):
+        hot = (ids == mag.unsqueeze(0)).to(table.dtype)        # [E, B]
+        tab = table[w].reshape(n_entries, 2 * lb.NLIMBS)        # [E, 32]
+        sel = (hot.unsqueeze(1) * tab.unsqueeze(2)).sum(0)      # [32, B]
+        sel = sel.to(lb.DTYPE)
+        return sel[:lb.NLIMBS], sel[lb.NLIMBS:]
+
+    acc = _base_accumulate_plain(digits, entry)
+    return acc.x, acc.y, acc.z
+
+
+def base_windowed_add_final_plain(digits, table, qx, qy, qz):
+    """(sum over windows of table[w][|d_w| - 1], y negated for negative
+    digits) + Q, the function of the Pallas
+    `_base_windowed_add_kernel(signed_digits=True, final_add=True)` with
+    the per-window selection done by a gather instead of the TPU's one-hot
+    matmul (verify's digits are public).
+
+    digits and table as `base_windowed_add_plain`; a complete add of Q ends
+    it.  Returns canonical (x, y, z) planes."""
+    from .. import field as fe
+    from .. import point as pt
+
+    def entry(w, mag):
+        ent = table[w].index_select(0, (mag - 1).clamp(min=0).long())
+        return ent[:, 0].t().contiguous(), ent[:, 1].t().contiguous()
+
+    acc = _base_accumulate_plain(digits, entry)
+    out = pt.add(acc, pt.Point(qx, qy, qz), fe.F_PLAIN)
     return out.x, out.y, out.z
 
 
@@ -259,6 +298,37 @@ def glv_windowed_mult_signed_from_points(d1, d2, p1, p2):
     return tuple(outs)
 
 
+def _check_table(name: str, table: torch.Tensor, w: int) -> None:
+    if table.dtype != torch.int32 or table.dim() != 4 \
+            or table.shape[0] != w or table.shape[2:] != (2, 16) \
+            or not table.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous int32 "
+                         f"[{w}, E, 2, 16] table, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+
+
+def base_windowed_add(digits, table):
+    """k*G from secret digits, one launch.  Replaces Pallas
+    `base_windowed_add` (kernels.py:1041); each window's entry is selected
+    by a masked scan over the whole table window in shared memory, so no
+    address or trip count depends on a digit."""
+    name = "base_windowed_add"
+    if _on_cpu(digits, table):
+        PLAIN_CALLS[name] += 1
+        return base_windowed_add_plain(digits, table)
+    w, lanes = digits.shape
+    _check(name, digits, w, lanes)
+    _check_table(name, table, w)
+    if table.shape[1] != 128:
+        raise ValueError(f"{name}: the kernel scans 128-entry windows, got "
+                         f"{table.shape[1]}")
+    outs = [torch.empty((16, lanes), dtype=torch.int32, device=digits.device)
+            for _ in range(3)]
+    _launch(name, "base", "base_windowed_add", [digits, table, *outs],
+            [lanes, w])
+    return tuple(outs)
+
+
 def base_windowed_add_final(digits, table, qx, qy, qz):
     """u1*G + Q, one launch.  Replaces Pallas `base_windowed_add_final`
     (kernels.py:1070); the per-window gather from the G table happens in
@@ -269,12 +339,7 @@ def base_windowed_add_final(digits, table, qx, qy, qz):
     name = "base_windowed_add_final"
     w, lanes = digits.shape
     _check(name, digits, w, lanes)
-    if table.dtype != torch.int32 or table.dim() != 4 \
-            or table.shape[0] != w or table.shape[2:] != (2, 16) \
-            or not table.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous int32 "
-                         f"[{w}, E, 2, 16] table, got {table.dtype} "
-                         f"{tuple(table.shape)}")
+    _check_table(name, table, w)
     for t in (qx, qy, qz):
         _check(name, t, 16, lanes)
     outs = [torch.empty_like(qx) for _ in range(3)]

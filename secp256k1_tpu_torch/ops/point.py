@@ -133,6 +133,35 @@ def is_identity(p: Point):
     return fe.is_zero(p.z)
 
 
+class AffinePoint(NamedTuple):
+    x: torch.Tensor
+    y: torch.Tensor
+
+
+def _z_inverse(z):
+    """1/Z per lane (0 for the identity): one batched inversion from 4 lanes
+    up, per-lane Fermat below, as the JAX package switches."""
+    return fe.invert_batch(z) if z.shape[1] >= 4 else fe.invert(z)
+
+
+def to_affine(p: Point) -> AffinePoint:
+    """Normalize to affine; identity lanes map to (0, 0) since
+    Invert(0) = 0."""
+    zinv = _z_inverse(p.z)
+    return AffinePoint(fe.mul(p.x, zinv), fe.mul(p.y, zinv))
+
+
+def is_y_odd(p: Point):
+    """Parity of the affine y (costs a rescale)."""
+    return fe.is_odd(to_affine(p).y)
+
+
+def affine_y(p: Point):
+    """Affine y only: one batched inversion and one multiply.  Identity
+    lanes map to 0."""
+    return fe.mul(p.y, _z_inverse(p.z))
+
+
 def on_curve(p: Point):
     """Projective curve membership: Y^2 Z == X^3 + 7 Z^3 (identity passes)."""
     lhs = fe.mul(fe.square(p.y), p.z)

@@ -1,11 +1,14 @@
 """Fixed-base tables and fixed-base scalar multiplication (PyTorch).
 
-The port of the verify-path part of `secp256k1_tpu.ops.table`: the signed
+The port of the signed 8-bit path of `secp256k1_tpu.ops.table`: the signed
 G table (computed here from python ints and cached in memory, never written
-to the JAX package's data directory), the signed window recoding, and
-`scalar_base_mult_add` (k*G + Q), which on CUDA is one launch of the
-fixed-base kernel.  The kernel gathers table[w][|d| - 1] itself: verify's
-digits are public, so the TPU's bf16 one-hot selection is not ported.
+to the JAX package's data directory), the signed window recoding,
+`scalar_base_mult` (k*G, secret k) and `scalar_base_mult_add` (k*G + Q,
+public k), each one launch of a fixed-base kernel on CUDA.  The kernels
+select the table entries themselves, so the TPU's bf16 one-hot selection
+planes are not ported: verify's kernel gathers table[w][|d| - 1] (public
+digits), the secret-digit kernel scans every entry of a window.  The window
+is fixed at 8 bits.
 """
 
 from __future__ import annotations
@@ -103,6 +106,16 @@ def _signed_digits(k: torch.Tensor, window_bits: int = BASE_WINDOW_BITS):
     n_windows = -(-256 // window_bits)
     return signed_recode(_raw_digits(k, window_bits, n_windows),
                          window_bits, 16)
+
+
+def scalar_base_mult(k: torch.Tensor) -> pt.Point:
+    """k*G for a secret scalar plane k: signed 8-bit fixed-base windows
+    (zero doublings, one mixed add per window, digit 0 passed through), in
+    one launch of the constant-time fixed-base kernel on CUDA, which
+    selects each window's entry by a masked scan of the whole window."""
+    x, y, z = K.base_windowed_add(_signed_digits(k).contiguous(),
+                                  base_table(k.device))
+    return pt.Point(x, y, z)
 
 
 def scalar_base_mult_add(k: torch.Tensor, q: pt.Point) -> pt.Point:

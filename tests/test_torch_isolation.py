@@ -21,7 +21,8 @@ import pytest
 import torch
 
 import secp256k1_tpu_torch
-from secp256k1_tpu_torch.models import ecdsa
+from secp256k1_tpu_torch import native
+from secp256k1_tpu_torch.models import ecdsa, keys, schnorr
 from secp256k1_tpu_torch.ops import field as fe
 from secp256k1_tpu_torch.ops.cuda import build
 from secp256k1_tpu_torch.ops.cuda import kernels as K
@@ -43,8 +44,10 @@ def _run(code, cwd=REPO):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _modules()
-    assert "secp256k1_tpu_torch.models.ecdsa" in mods
-    assert "secp256k1_tpu_torch.ops.cuda.kernels" in mods
+    for m in ("models.ecdsa", "models.schnorr", "models.keys",
+              "models.rfc6979", "models.tuplehash", "native",
+              "utils.config", "ops.cuda.kernels"):
+        assert f"secp256k1_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -75,6 +78,37 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bt.plane([1, 2], 16)
     assert bt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_signing_entry_points_raise_without_a_gpu():
+    _need_no_gpu()
+    keys32 = np.ones((1, 32), np.uint8)
+    priv = keys.PrivateKey(5)
+    calls = [
+        lambda: ecdsa.sign_batch_arrays(keys32, keys32),
+        lambda: ecdsa.sign_batch([priv], [bytes(32)]),
+        lambda: ecdsa.recover_batch([bytes(32)], [(1, 1, 0)]),
+        lambda: ecdsa.PubkeyCache([priv.public_key]),
+        lambda: schnorr.sign_batch_arrays(keys32, keys32, keys32),
+        lambda: schnorr.verify_batch_arrays(keys32, keys32,
+                                            np.ones((1, 64), np.uint8)),
+        lambda: schnorr.verify_batch([], [], []),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """A failed g++ build raises; nothing falls back to Python."""
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SRC", str(tmp_path / "missing.cpp"))
+    (tmp_path / "missing.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.sha256_batch(np.zeros((1, 4), np.uint8))
+    assert not os.listdir(tmp_path / "build" / os.listdir(
+        tmp_path / "build")[0])
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():

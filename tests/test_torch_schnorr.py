@@ -1,0 +1,139 @@
+"""The port's BIP-0340 slice on the CPU: every row of
+`tests/testdata/bip-0340-test-vectors.csv` through the list and the arrays
+paths, signatures byte-exact and verify results exact.
+
+The arrays paths take one message length a batch, so the rows go in one
+batch per message length (32 bytes, then 0, 1, 17 and 100).
+"""
+
+import csv
+import os
+
+import numpy as np
+import pytest
+
+from secp256k1_tpu.models import schnorr as jschnorr
+from secp256k1_tpu_torch.models import keys, schnorr
+from secp256k1_tpu_torch.utils import errors as ec
+
+CPU = "cpu"
+TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")
+
+
+def _rows():
+    with open(os.path.join(TESTDATA, "bip-0340-test-vectors.csv")) as f:
+        return list(csv.DictReader(f))
+
+
+ROWS = _rows()
+SIGNED = [r for r in ROWS if r["secret key"]]
+MSG_LENS = sorted({len(r["message"]) // 2 for r in ROWS})
+
+
+def _b(hexstr):
+    return bytes.fromhex(hexstr)
+
+
+def _arr(rows, field, width):
+    return np.stack([np.frombuffer(_b(r[field]), np.uint8)
+                     for r in rows]).reshape(len(rows), width)
+
+
+class _AuxQueue:
+    """Hands out each lane's aux_rand in lane order."""
+
+    def __init__(self, auxes):
+        self.auxes = list(auxes)
+
+    def read(self, n):
+        aux = self.auxes.pop(0)
+        assert n == len(aux)
+        return aux
+
+
+def test_vectors_cover_every_length_and_both_results():
+    assert len(ROWS) == 19 and len(SIGNED) == 8
+    assert MSG_LENS == [0, 1, 17, 32, 100]
+    assert {r["verification result"] for r in ROWS} == {"TRUE", "FALSE"}
+
+
+def test_sign_batch_list():
+    privs = [schnorr.SchnorrPrivateKey.from_bytes(_b(r["secret key"]))
+             for r in SIGNED]
+    for priv, r in zip(privs, SIGNED):
+        assert priv.public_key.bytes().hex().upper() == r["public key"]
+    sigs = schnorr.sign_batch(privs, [_b(r["message"]) for r in SIGNED],
+                              rand=_AuxQueue([_b(r["aux_rand"])
+                                              for r in SIGNED]), device=CPU)
+    assert [s.hex().upper() for s in sigs] == [r["signature"]
+                                               for r in SIGNED]
+
+
+def test_verify_batch_list():
+    pubs, msgs, sigs, want = [], [], [], []
+    for r in ROWS:
+        try:
+            pub = schnorr.SchnorrPublicKey.from_bytes(_b(r["public key"]))
+        except ValueError:
+            assert r["verification result"] == "FALSE", r["index"]
+            with pytest.raises(ValueError):
+                jschnorr.SchnorrPublicKey.from_bytes(_b(r["public key"]))
+            continue
+        pubs.append(pub)
+        msgs.append(_b(r["message"]))
+        sigs.append(_b(r["signature"]))
+        want.append(r["verification result"] == "TRUE")
+    sigs.append(sigs[0][:-1])                     # wrong length
+    pubs.append(pubs[0])
+    msgs.append(msgs[0])
+    want.append(False)
+    assert schnorr.verify_batch(pubs, msgs, sigs, device=CPU) == want
+
+
+@pytest.mark.parametrize("msg_len", MSG_LENS)
+def test_sign_batch_arrays(msg_len):
+    """The vectors of one message length in one batch.  The 32-byte batch
+    also holds keys 0 and n, which fail with ERR_INVALID_SCALAR and zeroed
+    signatures while the other lanes still sign."""
+    rows = [r for r in SIGNED if len(r["message"]) == 2 * msg_len]
+    priv = _arr(rows, "secret key", 32)
+    msgs = _arr(rows, "message", msg_len)
+    aux = _arr(rows, "aux_rand", 32)
+    want = [ec.OK] * len(rows)
+    if msg_len == 32:
+        bad = np.stack([np.zeros(32, np.uint8), np.frombuffer(
+            schnorr.N.to_bytes(32, "big"), np.uint8)])
+        priv = np.concatenate([priv, bad])
+        msgs = np.concatenate([msgs, msgs[:2]])
+        aux = np.concatenate([aux, aux[:2]])
+        want += [ec.ERR_INVALID_SCALAR] * 2
+    sigs, status = schnorr.sign_batch_arrays(priv, msgs, aux, device=CPU)
+    assert status.tolist() == want
+    assert [s.tobytes().hex().upper() for s in sigs[:len(rows)]] == \
+        [r["signature"] for r in rows]
+    assert not sigs[len(rows):].any()
+
+
+@pytest.mark.parametrize("msg_len", MSG_LENS)
+def test_verify_batch_arrays(msg_len):
+    rows = [r for r in ROWS if len(r["message"]) == 2 * msg_len]
+    got = schnorr.verify_batch_arrays(
+        _arr(rows, "public key", 32), _arr(rows, "message", msg_len),
+        _arr(rows, "signature", 64), device=CPU)
+    assert got.dtype == bool
+    assert got.tolist() == [r["verification result"] == "TRUE"
+                            for r in rows]
+
+
+def test_keys_and_tagged_hashes():
+    e = keys.PrivateKey(0x1234)
+    sp = schnorr.SchnorrPrivateKey.from_ecdsa(e)
+    assert sp.public_key == schnorr.SchnorrPublicKey.from_ecdsa(e.public_key)
+    assert sp.public_key.bytes() == jschnorr.SchnorrPrivateKey(
+        0x1234).public_key.bytes()
+    assert schnorr.pre_hash_message("test/domain", b"msg") == \
+        jschnorr.pre_hash_message("test/domain", b"msg")
+    with pytest.raises(ValueError):
+        schnorr.pre_hash_message("", b"msg")
+    with pytest.raises(ValueError):
+        schnorr.SchnorrPrivateKey(0)
