@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover and
-its BIP-0340 sign and verify on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover, its
+BIP-0340 sign and verify and its Pippenger and Straus MSM on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
 
     python3 chip_smoke.py            # the checks and timings below
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns
 
 It imports `secp256k1_tpu_torch` from the checkout (never JAX, never the
 JAX package) and runs, each phase printing its lines and any failure ending
 the run with a non-zero exit code:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the six kernels from `ops/cuda/csrc` (one nvcc per
+2. build: compiles the nine kernels from `ops/cuda/csrc` (one nvcc per
    source, in parallel) and the native host library (g++), and prints the
-   seconds and each kernel's registers;
+   seconds and each kernel's registers, stack and spills;
 3. kernels: each kernel against its plain PyTorch version on the card at
    65,536 lanes (edge values included), bit-exact, with its device time
    (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
-   events) and its bound; the GLV and both fixed-base results of a few
-   lanes also against python-int curve arithmetic;
-4. paths, each on 65,536 lanes with the launch counts set to 0 just before
-   it and read just after, failing if a kernel of that path was not
-   launched or a plain version was called:
+   events) and its bound; the GLV, both fixed-base and both point kernels'
+   results of a few lanes also against python-int curve arithmetic; the
+   bucket kernel bit-exact over every partial bucket at 2^14 points in its
+   unsigned (w = 4) and signed (w = 5, 6) modes, and at 2^20 points (w = 4,
+   the MSM path's shape), where it is timed;
+4. paths (verify and signing on 65,536 lanes), each with the launch
+   counts set to 0 just before it and read just after, failing if a kernel
+   of that path was not launched or a plain version was called:
    - verify: `verify_batch_arrays` with 33-byte keys and with 65-byte mixed
      keys, every status against the expected one;
    - ECDSA sign: `sign_batch_arrays` (the 20 RFC 6979 vectors in the batch,
@@ -34,15 +37,29 @@ the run with a non-zero exit code:
      status against the expected one;
    - Schnorr: `sign_batch_arrays` (BIP-0340 vectors 0-3 in the batch,
      byte-exact) and `verify_batch_arrays` (vectors 0-14 in the batch);
+   - MSM: `multi_scalar_mult` on 2^20 points (the bucket path, w = 4), a
+     signed-window call (w = 5) on the same points, a sort + scan call
+     (w = 8) on 2^14 points and `multi_scalar_mult_straus` on 64 points,
+     each result against python ints: 256 points a_i * G of known a_i tiled
+     over the lanes and a scalar k_j of its own on each lane, so the sum is
+     (sum_j k_j a_(j mod 256) mod n) * G; every kernel launch of these
+     paths (`point_add` from 1 to 491,520 lanes wide) is then held
+     bit-exact against its plain version on the operands it was given;
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
    DER parse); sign/s end to end with the host DRBG apart and of
    `_sign_e2e_core`; recover/s; keyed verify/s; Schnorr sign/s and verify/s;
+   MSM points/s at 2^16, 2^20 and 2^22 points and the bucket kernel's share
+   of the 2^20 call; with `--profile`, the device time by kernel and the
+   idle share of one `_verify_impl`, one `_sign_e2e_core` and one 2^20-point
+   `multi_scalar_mult` call (the last in a child process of this script,
+   `--profile-msm`);
 6. a `kernels` JSON line (launches summed over the paths, and per path),
    then the `ok` JSON line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -85,6 +102,9 @@ KERNEL_META = {
                                              f"{PALLAS}:1135"),
     "base_windowed_add_final": (f"{CSRC}/base.cu", f"{PALLAS}:1070"),
     "base_windowed_add": (f"{CSRC}/base.cu", f"{PALLAS}:1041"),
+    "point_add": (f"{CSRC}/point.cu", f"{PALLAS}:1376"),
+    "point_double": (f"{CSRC}/point.cu", f"{PALLAS}:1380"),
+    "msm_bucket_accumulate_all": (f"{CSRC}/msm.cu", f"{PALLAS}:1232"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -94,14 +114,30 @@ KERNEL_SYMBOL = {
     "glv_windowed_mult_signed_from_points": "k_glv_signed",
     "base_windowed_add_final": "k_base_final",
     "base_windowed_add": "k_base_scan",
+    "point_add": "k_point_add",
+    "point_double": "k_point_double",
+    "msm_bucket_accumulate_all": "k_msm_buckets",
 }
 # The kernels each path must launch.
 FIELD_KERNELS = ("mod_mul", "mod_square", "mod_pow2k")
 VERIFY_KERNELS = FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",
                                   "base_windowed_add_final")
 SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
+POINT_KERNELS = ("point_add", "point_double")
+MSM_KERNELS = ("msm_bucket_accumulate_all",) + POINT_KERNELS
+MSM_POINTS = 1 << 20             # the MSM path and the bucket kernel's time
+MSM_CHECK_POINTS = 1 << 14       # bucket kernel vs plain; sort + scan call
+MSM_STRAUS_POINTS = 64
+MSM_RATE_SIZES = (1 << 16, 1 << 20, 1 << 22)
 PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
 PROFILE_ATTEMPTS = 5
+# Host seconds of quiet at each end of a profiler session, so that no
+# device work starts or ends at a session's edge.  Late in a run the
+# profiler dropped every device activity of a session up to the end of
+# an MSM's 72 ms bucket kernel, with pauses of 0.1 to 1.6 s before the
+# work alike, while the same session kept them in a fresh process: the
+# profiled MSM runs in a process of its own (`--profile-msm`).
+PROFILE_PAD_S = 0.1
 TESTDATA = os.path.join(HERE, "tests", "testdata")
 
 
@@ -136,35 +172,54 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(label, fn, expect):
+    """(profiler, host seconds of fn()) of one torch.profiler session
+    around fn(), with PROFILE_PAD_S of host quiet at each end.  The
+    profiler may lose records: a session whose device rows name no kernel
+    holding one of `expect` is repeated, up to PROFILE_ATTEMPTS sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+        keys = [ev.key for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        missing = [k for k in expect if not any(k in key for key in keys)]
+        if not missing:
+            return prof, wall
+        say(f"profile: {label}: the profiler lost the record of {missing}; "
+            f"profiling again")
+    fail(f"profile: {label}: no record of {missing} in {PROFILE_ATTEMPTS} "
+         f"sessions")
+
+
 def kernel_device_ms(fn, reps: int, kernel: str):
     """(mean device milliseconds of one launch, launches seen) of the CUDA
     kernel whose name holds `kernel`, over reps calls of fn(), from
     torch.profiler's device rows: the kernel alone, without the host's cost
     of launching it.  The 50 MB L2 cache is flushed before each call, so
     the kernel reads its inputs from HBM, as its byte bound assumes.  The
-    profiler may lose records of launches, some or all of one session's:
-    the mean is over the launches it recorded, and a session that recorded
-    none is repeated, up to PROFILE_ATTEMPTS sessions."""
+    mean is over the launches the profiler recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        rows = [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
-        count = sum(ev.count for ev in rows)
-        if count:
-            return (sum(ev.self_device_time_total for ev in rows) / count
-                    / 1e3, count)
-    fail(f"the profiler recorded no launch of {kernel} in "
-         f"{PROFILE_ATTEMPTS} sessions")
+
+    def calls():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+    prof, _ = profiled(kernel, calls, [kernel])
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    count = sum(ev.count for ev in rows)
+    return sum(ev.self_device_time_total for ev in rows) / count / 1e3, count
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +268,9 @@ def phase_build():
             f"registers, {rep.get('stack')} bytes stack, "
             f"{rep.get('spill_stores')} bytes spill stores, "
             f"{rep.get('spill_loads')} bytes spill loads")
+    threads = build.library("msm").msm_bucket_threads
+    say("build: k_msm_buckets threads a block (buckets in shared memory) "
+        + ", ".join(f"{threads(nb)} for {nb} buckets" for nb in (15, 16, 32)))
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +443,25 @@ def random_planes(rng, lanes, modulus, device):
     return torch.as_tensor(arr, dtype=torch.int32, device=device)
 
 
+def bound_ms(int_rate, products_total, bytes_total):
+    """(least milliseconds, what sets it): the larger of the bytes over the
+    HBM rate and the 32-bit products over the integer rate."""
+    t_ops = products_total / int_rate * 1e3
+    t_bytes = bytes_total / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def random_z(xs, ys, rng, device):
+    """Affine planes (x, y) -> projective (xZ, yZ, Z) with a random nonzero
+    Z per lane (edge values of Z included)."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import limbs as lb
+    lanes = xs.shape[1]
+    z = random_planes(rng, lanes, fe.P, device)
+    z = torch.where(lb.is_zero(z).unsqueeze(0), fe.one((lanes,), device), z)
+    return [fe.mul(xs, z), fe.mul(ys, z), z]
+
+
 def max_abs_err(got, want) -> int:
     errs = [int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
             for g, w in zip(got, want)]
@@ -406,10 +483,7 @@ def kernel_checks(int_rate, curve, rng, device):
     res = {}
 
     def bound(products_total, bytes_total):
-        t_ops = products_total / int_rate * 1e3
-        t_bytes = bytes_total / HBM_BYTES_PER_S * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes \
-            else (t_bytes, "bytes")
+        return bound_ms(int_rate, products_total, bytes_total)
 
     def record(name, err, call, plain_call, reps, plain_reps,
                products_total, bytes_total, label):
@@ -548,9 +622,137 @@ def kernel_checks(int_rate, curve, rng, device):
            + table.numel() * 4, "base scan")
     check_points(got, [curve.g_mul(k) for k in
                        lb.limbs_to_int_batch(ks[:, :24])], hc, "base scan")
+
+    # Point kernels, random Z on both operands: lanes 0-7 P == Q, 8-15
+    # P == -Q, 16-19 P the identity (0, Z, 0), 20-23 Q the identity.
+    perm = (torch.arange(lanes, device=device) * 7 + 3) % lanes
+    p1 = random_z(qx, qy, rng, device)
+    p2 = random_z(qx[:, perm].contiguous(), qy[:, perm].contiguous(), rng,
+                  device)
+    a = [pts[i % n_pts] for i in range(24)]
+    b = [pts[int(perm[i]) % n_pts] for i in range(24)]
+    for c in range(3):
+        p2[c][:, :16] = p1[c][:, :16]
+    p2[1][:, 8:16] = fe.neg(p1[1][:, 8:16])
+    for pp, sl in ((p1, slice(16, 20)), (p2, slice(20, 24))):
+        pp[1][:, sl] = pp[2][:, sl]
+        pp[0][:, sl] = 0
+        pp[2][:, sl] = 0
+    for i in range(24):
+        b[i] = a[i] if i < 8 else hc.neg(a[i]) if i < 16 else b[i]
+        a[i] = None if 16 <= i < 20 else a[i]
+        b[i] = None if 20 <= i < 24 else b[i]
+    got = K.point_add(*p1, *p2)
+    record("point_add", max_abs_err(got, K.point_add_plain(*p1, *p2)),
+           lambda: K.point_add(*p1, *p2),
+           lambda: K.point_add_plain(*p1, *p2), 50, 5, PT_ADD * lanes,
+           9 * lane_bytes * lanes, "point_add")
+    check_points(got, [hc.add(x, y) for x, y in zip(a, b)], hc, "point_add")
+    got = K.point_double(*p1)
+    record("point_double", max_abs_err(got, K.point_double_plain(*p1)),
+           lambda: K.point_double(*p1), lambda: K.point_double_plain(*p1),
+           50, 5, PT_DOUBLE * lanes, 6 * lane_bytes * lanes, "point_double")
+    check_points(got, [hc.add(x, x) for x in a], hc, "point_double")
     say(f"pow2k: the longest run of squarings in the inversion and square "
         f"root chains is k={k_long}")
     return res
+
+
+class MsmPoints:
+    """N_DISTINCT points a_i * G of known a_i, to tile over MSM lanes."""
+
+    def __init__(self, curve, rng, device):
+        from secp256k1_tpu_torch.ops import limbs as lb
+        hc = curve.hc
+        self.curve, self.device = curve, device
+        self.logs = [int.from_bytes(rng.bytes(32), "big") % (hc.N - 1) + 1
+                     for _ in range(N_DISTINCT)]
+        pts = [curve.g_mul(a) for a in self.logs]
+        self.x, self.y = (torch.as_tensor(
+            lb.int_to_limbs_batch([q[c] for q in pts]), dtype=torch.int32,
+            device=device) for c in range(2))
+
+    def batch(self, n, rng):
+        """(scalars [16, n], points (Z = 1), expected sum as an affine
+        point): lane j holds a_(j mod 256) * G and a random k_j < 2^256 -
+        2^240 (< n), so the sum is (sum_j k_j a_(j mod 256) mod n) * G,
+        with the k_j summed by residue class limb by limb in numpy."""
+        from secp256k1_tpu_torch.ops import field as fe
+        from secp256k1_tpu_torch.ops import point as pt
+        hc = self.curve.hc
+        nd = len(self.logs)
+        arr = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+        arr[15] = np.minimum(arr[15], 0xFFFE)
+        padded = np.pad(arr, ((0, 0), (0, (-n) % nd)))
+        cls = padded.reshape(16, -1, nd).sum(1)           # [16, 256] < 2^63
+        total = sum(a * sum(int(cls[limb, i]) << (16 * limb)
+                            for limb in range(16))
+                    for i, a in enumerate(self.logs)) % hc.N
+        idx = torch.arange(n, device=self.device) % nd
+        points = pt.Point(self.x[:, idx].contiguous(),
+                          self.y[:, idx].contiguous(),
+                          fe.one((n,), self.device))
+        k = torch.as_tensor(arr, dtype=torch.int32, device=self.device)
+        return k, points, self.curve.g_mul(total)
+
+
+def msm_kernel_checks(int_rate, data, rng, device, res):
+    """The bucket kernel against its plain version over every partial
+    bucket at MSM_CHECK_POINTS points (random Z), unsigned w = 4 and signed
+    w = 5 and 6; then at MSM_POINTS (w = 4, the MSM path's digits [64, N])
+    its device time, the plain version's time (one call), the two results
+    against each other and the bound."""
+    from secp256k1_tpu_torch.ops import msm
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    name = "msm_bucket_accumulate_all"
+    m = msm.MSM_SLOTS
+    err = 0
+    for w in (4, 5, 6):
+        k, p, _ = data.batch(MSM_CHECK_POINTS, rng)
+        p = random_z(p.x, p.y, rng, device)
+        signed = w > 4
+        nb = (1 << (w - 1)) if signed else (1 << w) - 1
+        digits = (msm._signed_digits(k, w) if signed
+                  else msm._digits(k, w)).contiguous()
+        got = K.msm_bucket_accumulate_all(digits, *p, nb, signed, m)
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(
+            K.msm_bucket_accumulate_all_plain(digits, *p, nb, signed, m)),
+            1, warmup=0)
+        err = max(err, max_abs_err([got], plain))
+        if err:
+            fail(f"msm buckets w={w}: kernel differs from its plain version,"
+                 f" max abs err {err}")
+        say(f"kernel msm buckets w={w} ({'signed' if signed else 'unsigned'}"
+            f", {nb} buckets, {digits.shape[0]} windows): bit-exact over all "
+            f"{got.shape[0] * nb * m} partial buckets at {MSM_CHECK_POINTS} "
+            f"points; plain {plain_ms:.1f} ms")
+    k, p, _ = data.batch(MSM_POINTS, rng)
+    digits = msm._digits(k, 4).contiguous()
+    n, nw, nb = MSM_POINTS, digits.shape[0], 15
+
+    def call():
+        return K.msm_bucket_accumulate_all(digits, *p, nb, False, m)
+    ms, seen = kernel_device_ms(call, 3, KERNEL_SYMBOL[name])
+    wrapper_ms = cuda_ms(call, 3)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(K.msm_bucket_accumulate_all_plain(
+        digits, *p, nb, False, m)), 1, warmup=0)
+    err = max(err, max_abs_err([call()], plain))
+    if err:
+        fail(f"msm buckets w=4 at {n} points: kernel differs from its plain "
+             f"version, max abs err {err}")
+    del plain
+    adds = int(((digits >= 1) & (digits <= nb)).sum())
+    b_ms, b_by = bound_ms(int_rate, adds * PT_ADD,
+                          nw * n * 4 + 3 * 64 * n + nw * nb * 3 * 64 * m)
+    say(f"kernel msm buckets w=4 at {n} points (the MSM path's shape): "
+        f"bit-exact over all {nw * nb * m} partial buckets; {ms:.4f} ms "
+        f"device with a cold L2 (mean of {seen} of 3 launches; wrapper call "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, one call), bound "
+        f"{b_ms:.4f} ms by {b_by} ({adds} adds of nonzero digits)")
+    res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_points(planes, expect, hc, label):
@@ -573,14 +775,66 @@ def check_points(planes, expect, hc, label):
 # Phase 4-5: main path and throughput.
 # ---------------------------------------------------------------------------
 
-def run_path(label, kernels, fn):
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@contextlib.contextmanager
+def recording(names):
+    """While open, every call of the kernel wrappers `names` keeps a copy
+    of its arguments and results:
+    {name: [(args, kwargs, results), ...]}."""
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    calls = {name: [] for name in names}
+    wrappers = {name: getattr(K, name) for name in names}
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def keep(name):
+        def call(*args, **kwargs):
+            out = wrappers[name](*args, **kwargs)
+            calls[name].append(([copy(a) for a in args], kwargs,
+                                [o.clone() for o in as_tuple(out)]))
+            return out
+        return call
+    for name in names:
+        setattr(K, name, keep(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrappers.items():
+            setattr(K, name, fn)
+
+
+def replay_plain(label, calls):
+    """Each recorded launch of a path through its kernel's plain version,
+    at the width the path gave it: bit-exact, or the run fails."""
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    for name, recs in calls.items():
+        plain = getattr(K, f"{name}_plain")
+        recs = [r for r in recs if r[0][0].shape[1]]     # skip empty batches
+        err = max(max_abs_err(outs, as_tuple(plain(*args, **kwargs)))
+                  for args, kwargs, outs in recs)
+        widths = sorted({args[0].shape[1] for args, _, _ in recs})
+        if err:
+            fail(f"path {label}: a launch of {name} differs from its plain "
+                 f"version, max abs err {err}")
+        say(f"path {label}: all {len(recs)} launches of {name} (operand "
+            f"widths {widths[0]}-{widths[-1]}, {len(widths)} distinct) equal "
+            f"the plain version on their operands")
+
+
+def run_path(label, kernels, fn, replay=()):
     """Drive one path: launch counts set to 0 just before fn(), read just
     after.  Fails if a kernel of the path was not launched or a plain
-    version was called."""
+    version was called.  The launches of the kernels in `replay` are then
+    held against their plain versions on the same operands."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
-    K.reset_counts()
-    out = fn()
-    torch.cuda.synchronize()
+    with recording(replay) as calls:
+        K.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     plain = dict(K.PLAIN_CALLS)
     missing = [k for k in kernels if launches[k] == 0]
@@ -589,9 +843,10 @@ def run_path(label, kernels, fn):
     if any(plain.values()):
         fail(f"path {label}: plain versions called: {plain}")
     PATH_LAUNCHES[label] = launches
-    say(f"path {label}: launches per {LANES}-lane batch "
+    say(f"path {label}: launches "
         f"{ {k: v for k, v in launches.items() if v} }; plain-version "
         f"calls 0")
+    replay_plain(label, calls)
     return out
 
 
@@ -976,31 +1231,23 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
     return planes
 
 
-def profile_core(label, fn):
+def profile_core(label, fn, expect):
     """Device time by kernel name over one fn() call, and the idle share of
     that call: 1 - device busy time / the span from its first device
-    activity's start to its last one's end."""
+    activity's start to its last one's end.  Every kernel of `expect` must
+    appear in the session's records."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [(ev.self_device_time_total, ev.key, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA]
-    rows.sort(reverse=True)
+    prof, wall = profiled(label, fn, expect)
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
     spans = [ev.time_range for ev in prof.events()
              if ev.device_type == DeviceType.CUDA]
-    if not spans:
-        fail("profile: the profiler recorded no device activity")
     busy = sum(s.elapsed_us() for s in spans) / 1e3
     span = (max(s.end for s in spans) - min(s.start for s in spans)) / 1e3
-    say(f"profile: {label} at {LANES} lanes under the profiler: "
+    say(f"profile: {label} under the profiler: "
         f"{len(spans)} device activities, busy {busy:.3f} ms of a "
         f"{span:.3f} ms device span ({wall * 1e3:.3f} ms host wall): idle "
         f"share {1 - busy / span:.3f}")
@@ -1008,7 +1255,82 @@ def profile_core(label, fn):
         say(f"profile:   {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4-5: the MSM paths and their throughput.
+# ---------------------------------------------------------------------------
+
+def msm_paths(data, rng):
+    """multi_scalar_mult on MSM_POINTS (the bucket path, w = 4, and a
+    signed-window call, w = 5), the sort + scan path (w = 8) on
+    MSM_CHECK_POINTS and Straus on MSM_STRAUS_POINTS, each against python
+    ints, and every kernel launch of each path against its plain version
+    on the operands the path gave it."""
+    from secp256k1_tpu_torch.ops import msm
+    hc = data.curve.hc
+    k, p, want = data.batch(MSM_POINTS, rng)
+    if not msm._fused_msm_ok(p, 4):
+        fail(f"msm: {MSM_POINTS} points do not take the bucket path")
+    for label, w in ((f"msm ({MSM_POINTS} points, w=4)", None),
+                     (f"msm signed ({MSM_POINTS} points, w=5)", 5)):
+        got = run_path(label, MSM_KERNELS,
+                       lambda: msm.multi_scalar_mult(k, p, w),
+                       replay=MSM_KERNELS)
+        check_points(got, [want], hc, f"path {label}")
+    k, p, want = data.batch(MSM_CHECK_POINTS, rng)
+    label = f"msm sort+scan ({MSM_CHECK_POINTS} points, w=8)"
+    got = run_path(label, POINT_KERNELS,
+                   lambda: msm.multi_scalar_mult(k, p, 8),
+                   replay=POINT_KERNELS)
+    check_points(got, [want], hc, f"path {label}")
+    k, p, want = data.batch(MSM_STRAUS_POINTS, rng)
+    label = f"msm Straus ({MSM_STRAUS_POINTS} points)"
+    got = run_path(label, POINT_KERNELS,
+                   lambda: msm.multi_scalar_mult_straus(k, p),
+                   replay=POINT_KERNELS)
+    check_points(got, [want], hc, f"path {label}")
+
+
+def msm_throughput(data, rng, bucket_ms):
+    """MSM points/s at each of MSM_RATE_SIZES: the median of 5 single
+    calls by CUDA events (the automatic window: the bucket path); and the
+    bucket kernel's device time as a share of the MSM_POINTS call."""
+    from secp256k1_tpu_torch.ops import msm
+    hc = data.curve.hc
+    for n in MSM_RATE_SIZES:
+        k, p, want = data.batch(n, rng)
+        check_points(msm.multi_scalar_mult(k, p), [want], hc,
+                     f"msm at {n} points")
+        med, lo, hi = median_cuda_ms(lambda: msm.multi_scalar_mult(k, p), 5)
+        say(f"throughput: multi_scalar_mult at {n} points {med:.3f} ms "
+            f"(median of 5, range {lo:.3f}-{hi:.3f}) = {n / med * 1e3:.1f} "
+            f"points/s")
+        if n == MSM_POINTS:
+            say(f"throughput: the bucket kernel's {bucket_ms:.3f} ms device "
+                f"time is {bucket_ms / med:.3f} of the {n}-point call; the "
+                f"rest (digits, lane merge, weighted sums, window fold) "
+                f"{med - bucket_ms:.3f} ms")
+        del k, p
+        torch.cuda.empty_cache()
+
+
+def profile_msm():
+    """`--profile-msm`: one profiled multi_scalar_mult at MSM_POINTS, in a
+    fresh process (see PROFILE_PAD_S); the kernels are already built."""
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script drives the port on a GPU")
+    import_port()
+    from secp256k1_tpu_torch.ops import msm
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    k, p, _ = MsmPoints(HostCurve(), rng, device).batch(MSM_POINTS, rng)
+    profile_core(f"multi_scalar_mult at {MSM_POINTS} points (a process of "
+                 f"its own)", lambda: msm.multi_scalar_mult(k, p),
+                 [KERNEL_SYMBOL[name] for name in MSM_KERNELS])
+
+
 def main():
+    if "--profile-msm" in sys.argv[1:]:
+        return profile_msm()
     t_start = time.perf_counter()
     int_rate = phase_device()
     import_port()
@@ -1018,6 +1340,8 @@ def main():
     rng = np.random.default_rng(SEED)
     curve = HostCurve()
     res = kernel_checks(int_rate, curve, rng, device)
+    msm_data = MsmPoints(curve, rng, device)
+    msm_kernel_checks(int_rate, msm_data, rng, device, res)
 
     t0 = time.perf_counter()
     triples = make_triples(curve, rng)
@@ -1029,15 +1353,23 @@ def main():
     main_path(triples, rng, curve.hc, wide=True)
     ecdsa_out = ecdsa_sign_path(curve, signers, rng)
     schnorr_out = schnorr_path(curve, signers, rng)
+    msm_paths(msm_data, rng)
     throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
+    msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
     if "--profile" in sys.argv[1:]:
         from secp256k1_tpu_torch.models import ecdsa
         verify_planes = core_planes(triples, LANES, device)
-        profile_core("_verify_impl",
-                     lambda: ecdsa._verify_impl(*verify_planes))
-        profile_core("_sign_e2e_core",
-                     lambda: ecdsa._sign_e2e_core(*sign_planes))
+        profile_core(f"_verify_impl at {LANES} lanes",
+                     lambda: ecdsa._verify_impl(*verify_planes),
+                     [KERNEL_SYMBOL[name] for name in VERIFY_KERNELS])
+        profile_core(f"_sign_e2e_core at {LANES} lanes",
+                     lambda: ecdsa._sign_e2e_core(*sign_planes),
+                     [KERNEL_SYMBOL[name] for name in SIGN_KERNELS])
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--profile-msm"], cwd=HERE, timeout=600)
+        if child.returncode:
+            fail(f"the profiled MSM process exited {child.returncode}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "secp256k1_tpu.")))

@@ -5,6 +5,10 @@ This system has no weights.  What the two packages share are
 
 - limb and digit planes: numpy [L, *batch] uint32 (the JAX layout, flat
   [L, B] or tiled [L, B/128, 128]) <-> int32 [L, B] tensors;
+- point batches: the JAX `Point` (three such planes) <-> the port's;
+- the partial buckets of the MSM bucket kernel: the JAX slab
+  [W, nb, 3, 16, blk, 128] <-> the port's [W, nb, 3, 16, M], M = blk * 128
+  (lane slot j = sublane * 128 + lane);
 - the signed G table: numpy [33, 128, 2, 16] <-> int32 tensor;
 - a keyed-verify `PubkeyCache`: its affine key planes qx, qy, numpy
   [16, K] -> the port's cache.
@@ -34,6 +38,33 @@ def plane_from_torch(t: torch.Tensor, tiled: bool = False) -> np.ndarray:
         assert arr.shape[1] % 128 == 0
         return arr.reshape(arr.shape[0], -1, 128)
     return arr
+
+
+def point_to_torch(p, device="cpu"):
+    """A JAX point batch (x, y, z planes, flat or tiled) -> the port's
+    `Point` of int32 [16, B] planes."""
+    from .ops import point as pt
+    return pt.Point(*(plane_to_torch(c, device) for c in p))
+
+
+def point_from_torch(p):
+    """The port's `Point` -> (x, y, z) numpy uint32 [16, B] planes."""
+    return tuple(plane_from_torch(c) for c in p)
+
+
+def buckets_to_torch(slab, device="cpu") -> torch.Tensor:
+    """JAX partial buckets [W, nb, 3, 16, blk, 128] -> int32
+    [W, nb, 3, 16, blk * 128]."""
+    arr = np.asarray(slab)
+    flat = arr.reshape(arr.shape[:4] + (-1,))
+    return torch.as_tensor(flat.astype(np.int64), device=device).to(lb.DTYPE)
+
+
+def buckets_from_torch(t: torch.Tensor) -> np.ndarray:
+    """int32 [W, nb, 3, 16, M] -> numpy uint32 [W, nb, 3, 16, M/128, 128]."""
+    arr = t.detach().cpu().numpy().astype(np.uint32)
+    assert arr.shape[-1] % 128 == 0
+    return arr.reshape(arr.shape[:4] + (-1, 128))
 
 
 def table_to_torch(table, device="cpu") -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""The port's six kernels: wrappers, plain versions, launch counts.
+"""The port's nine kernels: wrappers, plain versions, launch counts.
 
 Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` that ECDSA verify,
-sign and recover and BIP-0340 sign and verify reach has here
+sign and recover, BIP-0340 sign and verify and the Pippenger and Straus
+MSM reach has here
 
 - a wrapper (`mod_mul`, `mod_square`, `mod_pow2k`,
   `glv_windowed_mult_signed_from_points`, `base_windowed_add_final`,
-  `base_windowed_add`): given
+  `base_windowed_add`, `point_add`, `point_double`,
+  `msm_bucket_accumulate_all`): given
   CPU tensors it runs the plain version; given CUDA tensors it launches the
   hand-written CUDA kernel (`csrc/*.cu`, built by `build.py`) or raises.
   There is no fallback from the kernel to the plain version;
@@ -35,7 +37,8 @@ MOD_ID = {P: 0, N: 1}
 
 KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "glv_windowed_mult_signed_from_points", "base_windowed_add_final",
-           "base_windowed_add")
+           "base_windowed_add", "point_add", "point_double",
+           "msm_bucket_accumulate_all")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -233,6 +236,67 @@ def base_windowed_add_final_plain(digits, table, qx, qy, qz):
     return out.x, out.y, out.z
 
 
+def point_add_plain(x1, y1, z1, x2, y2, z2):
+    """(x1, y1, z1) + (x2, y2, z2), RCB Algorithm 7: the composed formula
+    of `ops/point.py` under `fe.F_PLAIN`.  Returns canonical planes."""
+    from .. import field as fe
+    from .. import point as pt
+    return tuple(pt.add(pt.Point(x1, y1, z1), pt.Point(x2, y2, z2),
+                        fe.F_PLAIN))
+
+
+def point_double_plain(x, y, z):
+    """2 (x, y, z), RCB Algorithm 9, under `fe.F_PLAIN`."""
+    from .. import field as fe
+    from .. import point as pt
+    return tuple(pt.double(pt.Point(x, y, z), fe.F_PLAIN))
+
+
+def msm_bucket_accumulate_all_plain(digits, px, py, pz, n_buckets: int,
+                                    signed_digits: bool = False,
+                                    m_slots: int = 1024):
+    """Pippenger partial buckets, the function of the Pallas
+    `_msm_bucket_all_kernel`: int32 [W, n_buckets, 3, 16, m_slots].
+
+    Slot j of window w sums the points n = j, j + M, ... < N whose digit
+    selects the bucket, in increasing n, bucket first in each complete add.
+    The walk goes in steps of M points, each step one batched add over all
+    [W * M] (window, slot) lanes: the bucket the digit selects (a gather:
+    the plain version needs no constant time) plus the point, written back
+    where the digit is in [1, n_buckets] and discarded elsewhere.  Signed
+    digits are magnitude | sign << 6 with y negated for sign 1.  Lanes past
+    N take digit 0."""
+    from .. import field as fe
+    from .. import point as pt
+    f = fe.F_PLAIN
+    w, n = digits.shape
+    m, nb = m_slots, n_buckets
+    dev = digits.device
+    ident = pt.identity((w * nb * m,), dev)
+    acc = torch.stack(list(ident)).reshape(3, 16, w, nb, m)
+    for lo in range(0, n, m):
+        k = min(m, n - lo)
+        d = torch.zeros((w, m), dtype=torch.int64, device=dev)
+        d[:, :k] = digits[:, lo:lo + k]
+        pts = torch.zeros((3, 16, m), dtype=lb.DTYPE, device=dev)
+        for c, plane in enumerate((px, py, pz)):
+            pts[c, :, :k] = plane[:, lo:lo + k]
+        pts = pts.unsqueeze(2).expand(3, 16, w, m).reshape(3, 16, w * m)
+        mag = d
+        y = pts[1]
+        if signed_digits:
+            mag = d & 0x3F
+            y = f.select(((d >> 6) == 1).reshape(-1), f.neg(y), y)
+        idx = (mag - 1).clamp(0, nb - 1).reshape(1, 1, w, 1, m)
+        idx = idx.expand(3, 16, w, 1, m)
+        sel = acc.gather(3, idx).reshape(3, 16, w * m)
+        added = pt.add(pt.Point(*sel), pt.Point(pts[0], y, pts[2]), f)
+        hit = ((mag >= 1) & (mag <= nb)).reshape(-1)
+        new = torch.where(hit, torch.stack(list(added)), sel)
+        acc.scatter_(3, idx, new.reshape(3, 16, w, 1, m))
+    return acc.permute(2, 3, 0, 1, 4).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -346,3 +410,78 @@ def base_windowed_add_final(digits, table, qx, qy, qz):
     _launch(name, "base", "base_windowed_add_final",
             [digits, table, qx, qy, qz, *outs], [lanes, w, table.shape[1]])
     return tuple(outs)
+
+
+def point_add(x1, y1, z1, x2, y2, z2):
+    """(x1, y1, z1) + (x2, y2, z2) lane by lane, one launch, any width B.
+    Replaces Pallas `point_add` (kernels.py:1376)."""
+    name = "point_add"
+    planes = (x1, y1, z1, x2, y2, z2)
+    on_cpu = _on_cpu(*planes)
+    lanes = x1.shape[1] if x1.dim() == 2 else -1
+    for t in planes:
+        _check(name, t, 16, lanes)
+    outs = [torch.empty_like(x1) for _ in range(3)]
+    if not lanes:               # an empty batch: nothing to compute
+        return tuple(outs)
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return point_add_plain(*planes)
+    _launch(name, "point", "point_add", [*planes, *outs], [lanes])
+    return tuple(outs)
+
+
+def point_double(x, y, z):
+    """2 (x, y, z) lane by lane, one launch, any width B.  Replaces Pallas
+    `point_double` (kernels.py:1380)."""
+    name = "point_double"
+    on_cpu = _on_cpu(x, y, z)
+    lanes = x.shape[1] if x.dim() == 2 else -1
+    for t in (x, y, z):
+        _check(name, t, 16, lanes)
+    outs = [torch.empty_like(x) for _ in range(3)]
+    if not lanes:
+        return tuple(outs)
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return point_double_plain(x, y, z)
+    _launch(name, "point", "point_double", [x, y, z, *outs], [lanes])
+    return tuple(outs)
+
+
+def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
+                              signed_digits: bool = False,
+                              m_slots: int = 1024):
+    """Pippenger partial buckets of every window in one launch: int32
+    [W, n_buckets, 3, 16, m_slots] (see `msm_bucket_accumulate_all_plain`
+    for the function).  digits int32 [W, N]; px, py, pz int32 [16, N]; any
+    N (the ragged edge counts as digit 0).  Replaces Pallas
+    `msm_bucket_accumulate_all` (kernels.py:1232)."""
+    name = "msm_bucket_accumulate_all"
+    on_cpu = _on_cpu(digits, px, py, pz)
+    if digits.dim() != 2:
+        raise ValueError(f"{name}: digits must be [W, N], got "
+                         f"{tuple(digits.shape)}")
+    w, n = digits.shape
+    _check(name, digits, w, n)
+    for t in (px, py, pz):
+        _check(name, t, 16, n)
+    if m_slots < 1 or n_buckets < 1:
+        raise ValueError(f"{name}: need m_slots >= 1 and n_buckets >= 1, got "
+                         f"{m_slots}, {n_buckets}")
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return msm_bucket_accumulate_all_plain(digits, px, py, pz, n_buckets,
+                                               signed_digits, m_slots)
+    # The kernel keeps each slot's buckets in shared memory (96 B each); the
+    # CUDA side sizes the block from the card's shared memory.
+    if build.library("msm").msm_bucket_threads(n_buckets) < 32:
+        raise ValueError(f"{name}: {n_buckets} buckets a slot leave fewer "
+                         "than 32 threads a block in this card's shared "
+                         "memory")
+    out = torch.empty((w, n_buckets, 3, 16, m_slots), dtype=torch.int32,
+                      device=digits.device)
+    _launch(name, "msm", "msm_bucket_accumulate_all",
+            [digits, px, py, pz, out],
+            [w, n, n_buckets, int(signed_digits), m_slots])
+    return out

@@ -8,9 +8,13 @@ step for step in the order of the Pallas bodies `_point_add_body`,
 is what makes the projective X, Y, Z equal to the JAX package's, and not
 only the affine point.
 
-Each formula takes the field ring to compute in: `fe.F` (the default)
-routes multiplies to the kernel wrappers; the plain versions of the point
-kernels pass `fe.F_PLAIN`.
+`add` and `double` without a ring go to the point kernel wrappers
+(`point_add`, `point_double`), as the JAX package's `_maybe_pallas` does:
+one launch each on CUDA, whatever the batch width; the composed formula
+under `fe.F_PLAIN` on the CPU.  Given a ring `f`, a formula composes its
+steps from that ring's ops: the plain versions of the kernels pass
+`fe.F_PLAIN`.  `add_mixed` keeps its composed formula (through the
+`mod_mul` kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import NamedTuple
 import torch
 
 from . import field as fe
+from . import limbs as lb
+from .cuda import kernels as K
 
 B3 = 21  # 3*b for y^2 = x^3 + 7
 
@@ -45,14 +51,23 @@ def generator(batch_shape, device) -> Point:
                  fe.one(batch_shape, device))
 
 
+def _planes(p: Point):
+    """The planes of p as the kernel wrappers take them: contiguous int32
+    [16, B]."""
+    return tuple(c.to(lb.DTYPE).contiguous() for c in p)
+
+
 def add(p: Point, q: Point, f=None) -> Point:
     """Complete projective addition, RCB 2015 Algorithm 7 (a = 0).
 
-    The 12 multiplies fall into two rounds of six independent ones, and the
-    adds between them into a few more; each round is one batched ring op
-    (`ModRing.many`).  Every intermediate is the value that the step order
-    of `_point_add_body` computes (the step's name is in the comment)."""
-    f = f or fe.F
+    Without a ring: one `point_add` (one launch on CUDA).  Given a ring,
+    the composed formula: the 12 multiplies fall into two rounds of six
+    independent ones, and the adds between them into a few more; each round
+    is one batched ring op (`ModRing.many`).  Every intermediate is the
+    value that the step order of `_point_add_body` computes (the step's
+    name is in the comment)."""
+    if f is None:
+        return Point(*K.point_add(*_planes(p), *_planes(q)))
     x1, y1, z1 = p
     x2, y2, z2 = q
     s1, s2, s3, s4, s5, s6 = f.many(
@@ -98,9 +113,11 @@ def add_mixed(p: Point, qx, qy, f=None) -> Point:
 
 
 def double(p: Point, f=None) -> Point:
-    """Complete doubling, RCB 2015 Algorithm 9 (a = 0), in batched rounds
-    (the squares are products of equal operands: the same residues)."""
-    f = f or fe.F
+    """Complete doubling, RCB 2015 Algorithm 9 (a = 0): one `point_double`
+    without a ring; given a ring, in batched rounds (the squares are
+    products of equal operands: the same residues)."""
+    if f is None:
+        return Point(*K.point_double(*_planes(p)))
     x, y, z = p
     t0, t1, t2, xy = f.many("mul", (y, y), (y, z), (z, z), (x, y))
     z3 = f.add(t0, t0)
@@ -127,6 +144,18 @@ def select(mask, p: Point, q: Point) -> Point:
     """Per-lane select: mask ? p : q."""
     return Point(fe.select(mask, p.x, q.x), fe.select(mask, p.y, q.y),
                  fe.select(mask, p.z, q.z))
+
+
+def sub(p: Point, q: Point) -> Point:
+    return add(p, negate(q))
+
+
+def equal(p: Point, q: Point):
+    """Projective cross-multiplied equality: X1 Z2 == X2 Z1 and
+    Y1 Z2 == Y2 Z1 (the identity equals only itself)."""
+    ex = fe.eq(fe.mul(p.x, q.z), fe.mul(q.x, p.z))
+    ey = fe.eq(fe.mul(p.y, q.z), fe.mul(q.y, p.z))
+    return ex & ey
 
 
 def is_identity(p: Point):
@@ -168,3 +197,15 @@ def on_curve(p: Point):
     z3 = fe.mul(fe.square(p.z), p.z)
     rhs = fe.add(fe.mul(fe.square(p.x), p.x), fe.mul_word(z3, 7))
     return fe.eq(lhs, rhs)
+
+
+def scalar_mult_trivial(k, p: Point) -> Point:
+    """Naive 256-step double-and-add ladder, the differential test oracle:
+    k is a [16, B] scalar plane; every step adds and doubles, and a mask
+    keeps the sum where the bit is 1."""
+    acc, base = identity((p.x.shape[1],), p.x.device), p
+    for i in range(256):
+        bit = (k[i // 16] >> (i % 16)) & 1
+        acc = select(bit == 1, add(acc, base), acc)
+        base = double(base)
+    return acc

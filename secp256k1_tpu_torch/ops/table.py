@@ -8,7 +8,8 @@ public k), each one launch of a fixed-base kernel on CUDA.  The kernels
 select the table entries themselves, so the TPU's bf16 one-hot selection
 planes are not ported: verify's kernel gathers table[w][|d| - 1] (public
 digits), the secret-digit kernel scans every entry of a window.  The window
-is fixed at 8 bits.
+is fixed at 8 bits.  Also the per-lane tables of Straus's MSM
+(`build_lane_table`, `lookup_lane_table`).
 """
 
 from __future__ import annotations
@@ -127,3 +128,30 @@ def scalar_base_mult_add(k: torch.Tensor, q: pt.Point) -> pt.Point:
         digits.contiguous(), base_table(k.device),
         q.x.contiguous(), q.y.contiguous(), q.z.contiguous())
     return pt.Point(x, y, z)
+
+
+# ---------------------------------------------------------------------------
+# Per-lane tables (Straus).
+# ---------------------------------------------------------------------------
+
+def lookup_lane_table(table: torch.Tensor, digits: torch.Tensor) -> pt.Point:
+    """Per-lane lookup: table [E, 3, 16, B] (entry d - 1 = d*P per lane),
+    digits [B] in [0, E].  A masked sum over all E entries, never a gather
+    by the digit: every lane reads every entry.  Digit 0 gives (0, 0, 0)."""
+    e = table.shape[0]
+    idx = torch.arange(1, e + 1, dtype=digits.dtype, device=digits.device)
+    mask = (digits.unsqueeze(0) == idx.unsqueeze(1)).to(table.dtype)
+    sel = (table * mask[:, None, None]).sum(0, dtype=table.dtype)
+    return pt.Point(sel[0], sel[1], sel[2])
+
+
+def build_lane_table(p: pt.Point, n_entries: int = 15) -> torch.Tensor:
+    """[d*P for d in 1..n_entries] stacked as int32 [E, 3, 16, B]: one
+    doubling and E - 2 complete adds, batched over the lanes."""
+    p2 = pt.double(p)
+    rows = [torch.stack(list(p)), torch.stack(list(p2))]
+    acc = p2
+    for _ in range(n_entries - 2):
+        acc = pt.add(acc, p)
+        rows.append(torch.stack(list(acc)))
+    return torch.stack(rows)

@@ -12,6 +12,10 @@ import torch
 from secp256k1_tpu.utils import batching as jbt
 from secp256k1_tpu_torch.utils import batching as bt
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -14,6 +14,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from secp256k1_tpu.models import codecs as jcodecs
 from secp256k1_tpu.models import ecdsa as jecdsa
@@ -24,6 +25,10 @@ from test_wycheproof import (SIG_FLAGS_ALWAYS_VALID, SIG_FLAGS_ASN1_ONLY,
                              SIG_FLAGS_MAY_REJECT_EARLY,
                              SIG_FLAGS_MUST_REJECT_EARLY,
                              _expected_device_errors, _hash, load)
+
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
 
 FILES = ["ecdsa_secp256k1_sha256_test.json",
          "ecdsa_secp256k1_sha512_test.json"]

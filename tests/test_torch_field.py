@@ -28,6 +28,10 @@ from secp256k1_tpu_torch.ops import limbs as lb
 from secp256k1_tpu_torch.ops import scalar as sc
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 P, N = fe.P, sc.N
 RINGS = {"p": (fe.F, jfe.F, P), "n": (sc.S, jsc.S, N)}
 

@@ -28,6 +28,10 @@ from secp256k1_tpu_torch.ops.cuda import build
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import batching as bt
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -46,7 +50,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _modules()
     for m in ("models.ecdsa", "models.schnorr", "models.keys",
               "models.rfc6979", "models.tuplehash", "native",
-              "utils.config", "ops.cuda.kernels"):
+              "utils.config", "ops.cuda.kernels", "ops.msm", "ops.table",
+              "ops.point", "convert"):
         assert f"secp256k1_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -123,8 +128,28 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     assert K.PLAIN_CALLS["mod_pow2k"] == 1 and K.LAUNCHES["mod_pow2k"] == 0
 
 
+def test_msm_wrappers_take_the_plain_version_only_on_the_cpu():
+    """The MSM path's kernels: plain on CPU tensors, a raise on mixed
+    devices, no launch counted for either."""
+    from secp256k1_tpu_torch.ops import msm
+    from secp256k1_tpu_torch.ops import point as pt
+    p = pt.identity((4,), "cpu")
+    meta = torch.empty((16, 4), dtype=torch.int32, device="meta")
+    digits = torch.zeros((2, 4), dtype=torch.int32)
+    K.reset_counts()
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.point_double(meta, meta, p.z)
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.msm_bucket_accumulate_all(digits, p.x, p.y, meta, 15)
+    assert pt.is_identity(pt.double(pt.add(p, p))).all()
+    out = msm.multi_scalar_mult(torch.zeros((16, 4), dtype=torch.int32), p)
+    assert pt.is_identity(out).tolist() == [True]
+    assert not any(K.LAUNCHES.values())
+    assert K.PLAIN_CALLS["point_add"] and K.PLAIN_CALLS["point_double"]
+
+
 def test_build_is_keyed_by_the_sources():
-    assert build.sources() == ["base", "glv", "modops"]
+    assert build.sources() == ["base", "glv", "modops", "msm", "point"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.build_dir().startswith(

@@ -1,0 +1,145 @@
+"""The port's MSM against the JAX package on the same inputs.
+
+Marked `slow`: it jits the JAX MSM pipelines (point adds inside scans and
+maps) on XLA:CPU, which takes minutes, so tier-1 (`-m 'not slow'`) leaves
+it out.  Run it with
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_msm_vs_jax.py -m slow
+
+Both packages get the same numpy inputs through
+`secp256k1_tpu_torch.convert`.  Where both take the same path (on the CPU
+the JAX package always takes sort + scan, its Pallas kernels being off)
+the projective X, Y, Z must be equal bit for bit; at 2,048 points the port
+takes the bucket path and JAX sort + scan, so there the affine points must
+be equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from secp256k1_tpu.ops import msm as jmsm
+from secp256k1_tpu.ops import point as jpt
+from secp256k1_tpu.ops import table as jtbl
+from secp256k1_tpu_torch import convert
+from secp256k1_tpu_torch.ops import limbs as lb
+from secp256k1_tpu_torch.ops import msm
+from secp256k1_tpu_torch.ops import point as pt
+from secp256k1_tpu_torch.ops import table as tbl
+from secp256k1_tpu_torch.utils import hostcurve as hc
+
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
+P, N = hc.P, hc.N
+
+pytestmark = pytest.mark.slow
+
+
+def _rand(rng, m, k):
+    return [int.from_bytes(rng.bytes(32), "big") % m for _ in range(k)]
+
+
+def _inputs(n, seed, z=True):
+    """n scalars and n points (8 distinct, random Z) as numpy planes."""
+    rng = np.random.default_rng(seed)
+    base = [hc.mul(a + 1, hc.G) for a in _rand(rng, N - 1, 8)]
+    pts = [base[i] for i in rng.integers(0, 8, n)]
+    zs = [v + 1 for v in _rand(rng, P - 1, n)] if z else [1] * n
+    xyz = [[p[0] * s % P for p, s in zip(pts, zs)],
+           [p[1] * s % P for p, s in zip(pts, zs)], zs]
+    planes = tuple(lb.int_to_limbs_batch(c).astype(np.uint32) for c in xyz)
+    ks = lb.int_to_limbs_batch(_rand(rng, N, n)).astype(np.uint32)
+    return ks, planes
+
+
+def _t(arr):
+    """numpy uint32 rows of any shape -> an int32 tensor."""
+    return torch.as_tensor(np.asarray(arr).astype(np.int64)).to(torch.int32)
+
+
+def _jax_point(planes):
+    return jpt.Point(*[jnp.asarray(c) for c in planes])
+
+
+def _same(port, jax_out):
+    """Port planes [16, B] against JAX planes [16, *batch], bit for bit."""
+    for g, w in zip(port, jax_out):
+        w = np.asarray(w)
+        assert np.array_equal(convert.plane_from_torch(g),
+                              w.reshape(16, -1))
+
+
+def _affine(planes):
+    xs, ys, zs = (lb.limbs_to_int_batch(np.asarray(c).reshape(16, -1)
+                                        .astype(np.int64)) for c in planes)
+    return [None if z == 0 else (x * pow(z, P - 2, P) % P,
+                                 y * pow(z, P - 2, P) % P)
+            for x, y, z in zip(xs, ys, zs)]
+
+
+@pytest.mark.parametrize("w", [4, 2])
+def test_multi_scalar_mult_matches_jax(w):
+    ks, planes = _inputs(32, w)
+    want = jax.jit(jmsm.multi_scalar_mult, static_argnums=2)(
+        jnp.asarray(ks), _jax_point(planes), w)
+    got = msm.multi_scalar_mult(convert.plane_to_torch(ks),
+                                convert.point_to_torch(planes), w)
+    _same(got, want)
+
+
+def test_straus_matches_jax():
+    ks, planes = _inputs(8, 5)
+    want = jax.jit(jmsm.multi_scalar_mult_straus)(jnp.asarray(ks),
+                                                  _jax_point(planes))
+    got = msm.multi_scalar_mult_straus(convert.plane_to_torch(ks),
+                                       convert.point_to_torch(planes))
+    _same(got, want)
+
+
+def test_merge_sums_and_fold_match_jax():
+    """_lane_merge over a JAX bucket slab, the weighted sums of a batch of
+    windows (JAX: vmap) and the Horner fold."""
+    _, planes = _inputs(3 * 256, 6)
+    slab = np.stack(planes).reshape(3, 16, 3, 2, 128).transpose(2, 0, 1, 3, 4)
+    want = jax.jit(jmsm._lane_merge)(jnp.asarray(slab))   # [3, 3, 16]
+    got = msm._lane_merge(convert.buckets_to_torch(slab[None])[0])
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+
+    _, planes = _inputs(2 * 16, 7)
+    rows = np.stack(planes).reshape(3, 16, 2, 16).transpose(2, 3, 0, 1)
+    want = jax.jit(jax.vmap(jmsm._weighted_bucket_sum))(jnp.asarray(rows))
+    got = msm._weighted_bucket_sum(_t(rows))
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+
+    wsums = np.asarray(want)
+    fold = jax.jit(jmsm.combine_windows, static_argnums=1)(
+        jnp.asarray(wsums), 4)
+    _same(msm.combine_windows(_t(wsums), 4), fold)
+
+
+def test_lane_table_and_trivial_ladder_match_jax():
+    ks, planes = _inputs(4, 8)
+    want = jax.jit(jtbl.build_lane_table)(_jax_point(planes))
+    got = tbl.build_lane_table(convert.point_to_torch(planes))
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+    want = jax.jit(jpt.scalar_mult_trivial)(jnp.asarray(ks),
+                                            _jax_point(planes))
+    _same(pt.scalar_mult_trivial(convert.plane_to_torch(ks),
+                                 convert.point_to_torch(planes)), want)
+
+
+def test_bucket_path_matches_jax_affine(monkeypatch):
+    """2,048 points: the port takes the bucket path (lane slots shrunk to
+    keep the plain lane merge to seconds), JAX on the CPU sort + scan."""
+    monkeypatch.setattr(msm, "MSM_SLOTS", 128)
+    ks, planes = _inputs(2048, 9, z=False)
+    points = convert.point_to_torch(planes)
+    assert msm._fused_msm_ok(points, 4)
+    want = jax.jit(jmsm.multi_scalar_mult)(jnp.asarray(ks),
+                                           _jax_point(planes))
+    got = msm.multi_scalar_mult(convert.plane_to_torch(ks), points)
+    assert _affine(got) == _affine(want) and _affine(got)[0] is not None

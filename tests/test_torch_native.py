@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from secp256k1_tpu.models import codecs as jcodecs
 from secp256k1_tpu.models.rfc6979 import DrbgRFC6979 as JaxDrbg
@@ -19,6 +20,10 @@ from secp256k1_tpu.models.schnorr import tagged_hash as jax_tagged_hash
 from secp256k1_tpu_torch import native
 from secp256k1_tpu_torch.models import schnorr
 from secp256k1_tpu_torch.models.rfc6979 import DrbgRFC6979
+
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "tests", "testdata")

@@ -31,6 +31,10 @@ from secp256k1_tpu_torch.ops import point as pt
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import hostcurve as hc
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 P, N = hc.P, hc.N
 LANES = 128
 RNG = np.random.default_rng(20260)

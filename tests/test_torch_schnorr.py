@@ -11,10 +11,15 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from secp256k1_tpu.models import schnorr as jschnorr
 from secp256k1_tpu_torch.models import keys, schnorr
 from secp256k1_tpu_torch.utils import errors as ec
+
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
 
 CPU = "cpu"
 TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")

@@ -36,6 +36,10 @@ from secp256k1_tpu_torch.utils import config as cfg
 from secp256k1_tpu_torch.utils import errors as ec
 from secp256k1_tpu_torch.utils import hostcurve as hc
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 N, P = hc.N, hc.P
 TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")

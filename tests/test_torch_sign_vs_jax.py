@@ -23,6 +23,10 @@ from secp256k1_tpu_torch.ops import limbs as lb
 from secp256k1_tpu_torch.utils import batching as bt
 from secp256k1_tpu_torch.utils import hostcurve as hc
 
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
+
 N, P = hc.N, hc.P
 LANES = 16
 CPU = "cpu"

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from secp256k1_tpu.models import ecdsa as jecdsa
 from secp256k1_tpu_torch import convert
@@ -19,6 +20,10 @@ from secp256k1_tpu_torch.models import ecdsa
 from secp256k1_tpu_torch.ops import limbs as lb
 from secp256k1_tpu_torch.utils import errors as ec
 from secp256k1_tpu_torch.utils import hostcurve as hc
+
+# One intra-op thread: tier-1 runs several pytest workers on one host,
+# and a thread pool of the cores' size in each would oversubscribe it.
+torch.set_num_threads(1)
 
 N = hc.N
 
