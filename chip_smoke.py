@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover, its
-BIP-0340 sign and verify and its Pippenger and Straus MSM on one NVIDIA GPU.
+BIP-0340 sign and verify, its batched ECDH, its Pippenger and Straus MSM
+and the engines behind the JAX package's switches on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
@@ -13,20 +14,24 @@ JAX package) and runs, each phase printing its lines and any failure ending
 the run with a non-zero exit code:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the nine kernels from `ops/cuda/csrc` (one nvcc per
+2. build: compiles the fourteen kernels from `ops/cuda/csrc` (one nvcc per
    source, in parallel) and the native host library (g++), and prints the
    seconds and each kernel's registers, stack and spills;
 3. kernels: each kernel against its plain PyTorch version on the card at
    65,536 lanes (edge values included), bit-exact, with its device time
    (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
-   events) and its bound; the GLV, both fixed-base and both point kernels'
-   results of a few lanes also against python-int curve arithmetic; the
+   events) and its bound; the GLV, fixed-base and point kernels' results
+   of a few lanes also against python-int curve arithmetic; the engine
+   kernels (`point_double4`, `point_add_mixed`, `point_lookup_add`, the
+   unsigned GLV #7 and the lane-table GLV #9, whose affine result must
+   equal #7's and #4's), and the fixed-base kernels at their other shapes
+   (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); the
    bucket kernel bit-exact over every partial bucket at 2^14 points in its
    unsigned (w = 4) and signed (w = 5, 6) modes, and at 2^20 points (w = 4,
    the MSM path's shape), where it is timed;
-4. paths (verify and signing on 65,536 lanes), each with the launch
-   counts set to 0 just before it and read just after, failing if a kernel
-   of that path was not launched or a plain version was called:
+4. paths (65,536 lanes), each with the launch counts set to 0 just before
+   it and read just after, failing if a kernel of that path was not
+   launched or a plain version was called:
    - verify: `verify_batch_arrays` with 33-byte keys and with 65-byte mixed
      keys, every status against the expected one;
    - ECDSA sign: `sign_batch_arrays` (the 20 RFC 6979 vectors in the batch,
@@ -37,23 +42,33 @@ the run with a non-zero exit code:
      status against the expected one;
    - Schnorr: `sign_batch_arrays` (BIP-0340 vectors 0-3 in the batch,
      byte-exact) and `verify_batch_arrays` (vectors 0-14 in the batch);
+   - ECDH: `ecdh_batch_arrays` under the default GLV engine,
+     `set_mega_signed(False)` and `set_mega(False)`, every status of the
+     corrupted lanes, 256 sampled lanes against python ints and every lane
+     against the default engine's bytes;
+   - verify and ECDSA sign under `set_base_signed(False)`,
+     `set_base_window(4)` and `set_base_window(12)`: every status, and
+     every signature equal to the default path's;
    - MSM: `multi_scalar_mult` on 2^20 points (the bucket path, w = 4), a
      signed-window call (w = 5) on the same points, a sort + scan call
      (w = 8) on 2^14 points and `multi_scalar_mult_straus` on 64 points,
      each result against python ints: 256 points a_i * G of known a_i tiled
      over the lanes and a scalar k_j of its own on each lane, so the sum is
-     (sum_j k_j a_(j mod 256) mod n) * G; every kernel launch of these
-     paths (`point_add` from 1 to 491,520 lanes wide) is then held
-     bit-exact against its plain version on the operands it was given;
+     (sum_j k_j a_(j mod 256) mod n) * G;
+   every kernel launch of the ECDH, switch and MSM paths is then held
+   bit-exact against its plain version on the operands it was given;
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
    DER parse); sign/s end to end with the host DRBG apart and of
    `_sign_e2e_core`; recover/s; keyed verify/s; Schnorr sign/s and verify/s;
    MSM points/s at 2^16, 2^20 and 2^22 points and the bucket kernel's share
-   of the 2^20 call; with `--profile`, the device time by kernel and the
-   idle share of one `_verify_impl`, one `_sign_e2e_core` and one 2^20-point
-   `multi_scalar_mult` call (the last in a child process of this script,
-   `--profile-msm`);
-6. a `kernels` JSON line (launches summed over the paths, and per path),
+   of the 2^20 call; ECDH/s end to end and of `_ecdh_e2e_core` under each
+   GLV engine; the verify and sign cores under each fixed-base switch;
+   with `--profile`, the device time by kernel and the idle share of one
+   `_verify_impl`, one `_sign_e2e_core`, one `_ecdh_e2e_core` and one
+   2^20-point `multi_scalar_mult` call (the last in a child process of
+   this script, `--profile-msm`);
+6. a `kernels` JSON line (launches summed over the paths, and per path;
+   `glv_windowed_mult`, which no path of either package calls, with 0),
    then the `ok` JSON line last.
 """
 
@@ -105,6 +120,11 @@ KERNEL_META = {
     "point_add": (f"{CSRC}/point.cu", f"{PALLAS}:1376"),
     "point_double": (f"{CSRC}/point.cu", f"{PALLAS}:1380"),
     "msm_bucket_accumulate_all": (f"{CSRC}/msm.cu", f"{PALLAS}:1232"),
+    "glv_windowed_mult_from_points": (f"{CSRC}/glv.cu", f"{PALLAS}:1105"),
+    "glv_windowed_mult": (f"{CSRC}/glv.cu", f"{PALLAS}:1266"),
+    "point_double4": (f"{CSRC}/point.cu", f"{PALLAS}:1384"),
+    "point_add_mixed": (f"{CSRC}/point.cu", f"{PALLAS}:1413"),
+    "point_lookup_add": (f"{CSRC}/lookup.cu", f"{PALLAS}:1388"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -117,6 +137,11 @@ KERNEL_SYMBOL = {
     "point_add": "k_point_add",
     "point_double": "k_point_double",
     "msm_bucket_accumulate_all": "k_msm_buckets",
+    "glv_windowed_mult_from_points": "k_glv_unsigned",
+    "glv_windowed_mult": "k_glv_tables",
+    "point_double4": "k_point_dbl4",
+    "point_add_mixed": "k_point_mixed",
+    "point_lookup_add": "k_lookup_add",
 }
 # The kernels each path must launch.
 FIELD_KERNELS = ("mod_mul", "mod_square", "mod_pow2k")
@@ -125,6 +150,27 @@ VERIFY_KERNELS = FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",
 SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
 POINT_KERNELS = ("point_add", "point_double")
 MSM_KERNELS = ("msm_bucket_accumulate_all",) + POINT_KERNELS
+# ECDH under each GLV engine, and verify and sign under each fixed-base
+# switch: (label, switch setter arguments, kernels the path must launch).
+ECDH_ENGINES = (
+    ("default", {}, FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",)),
+    ("mega_signed=0", {"mega_signed": False},
+     FIELD_KERNELS + ("glv_windowed_mult_from_points",)),
+    ("mega=0", {"mega": False},
+     FIELD_KERNELS + POINT_KERNELS + ("point_double4", "point_lookup_add")),
+)
+BASE_SWITCHES = (
+    ("base_signed=0", {"base_signed": False},
+     VERIFY_KERNELS[:4] + ("base_windowed_add", "point_add"),
+     SIGN_KERNELS),
+    ("base_window=4", {"base_window": 4},
+     VERIFY_KERNELS[:4] + ("point_add_mixed", "point_add"),
+     FIELD_KERNELS + ("point_add_mixed",)),
+    ("base_window=12", {"base_window": 12}, VERIFY_KERNELS, SIGN_KERNELS),
+)
+# The one kernel that no path of either package calls (the JAX package's
+# glv_windowed_mult, from prebuilt tables): driven by the kernel phase only.
+NO_PATH_KERNELS = ("glv_windowed_mult",)
 MSM_POINTS = 1 << 20             # the MSM path and the bucket kernel's time
 MSM_CHECK_POINTS = 1 << 14       # bucket kernel vs plain; sort + scan call
 MSM_STRAUS_POINTS = 64
@@ -482,31 +528,10 @@ def kernel_checks(int_rate, curve, rng, device):
     lane_bytes = 16 * 4
     res = {}
 
-    def bound(products_total, bytes_total):
-        return bound_ms(int_rate, products_total, bytes_total)
-
     def record(name, err, call, plain_call, reps, plain_reps,
                products_total, bytes_total, label):
-        """Check, then time: the kernel's device time (profiler), the
-        wrapper's and the plain version's time per call (CUDA events)."""
-        if err != 0:
-            fail(f"{label}: kernel differs from its plain version, max abs "
-                 f"err {err}")
-        ms, seen = kernel_device_ms(call, reps, KERNEL_SYMBOL[name])
-        wrapper_ms = cuda_ms(call, reps)
-        plain_ms = cuda_ms(plain_call, plain_reps,
-                           warmup=1 if plain_reps > 1 else 0)
-        b_ms, b_by = bound(products_total, bytes_total)
-        say(f"kernel {label}: bit-exact at {lanes} lanes, {ms:.4f} ms device"
-            f" with a cold L2 (mean of {seen} of {reps} launches; wrapper "
-            f"call {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms), bound "
-            f"{b_ms:.4f} ms by {b_by}")
-        prev = res.get(name)
-        if prev is None:
-            res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": b_ms, "bound_by": b_by}
-        else:
-            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+        timed_check(int_rate, res, name, label, err, call, plain_call, reps,
+                    plain_reps, products_total, bytes_total)
 
     # Field kernels, p and n.  The JSON keeps the first (mod p) time.
     chain_ks = []
@@ -552,15 +577,8 @@ def kernel_checks(int_rate, curve, rng, device):
     # GLV kernel at the operands verify gives it: u2 * Q with Q affine
     # (Z = 1), from tiled host points and random scalars.
     n_pts = 64
-    pts = [curve.g_mul(int.from_bytes(rng.bytes(32), "big") % hc.N or 1)
-           for _ in range(n_pts)]
-    idx = torch.arange(lanes, device=device) % n_pts
-    qx = torch.as_tensor(lb.int_to_limbs_batch([p[0] for p in pts]),
-                         dtype=torch.int32, device=device)[:, idx]
-    qy = torch.as_tensor(lb.int_to_limbs_batch([p[1] for p in pts]),
-                         dtype=torch.int32, device=device)[:, idx]
-    q = pt.Point(qx.contiguous(), qy.contiguous(),
-                 fe.one((lanes,), device))
+    pts, qx, qy = tiled_points(curve, rng, lanes, device, n_pts)
+    q = pt.Point(qx, qy, fe.one((lanes,), device))
     u2 = random_planes(rng, lanes, sc.N, device)
     d1, d2, p1, p2 = glv.glv_kernel_operands(u2, q)
     name = "glv_windowed_mult_signed_from_points"
@@ -656,6 +674,229 @@ def kernel_checks(int_rate, curve, rng, device):
     say(f"pow2k: the longest run of squarings in the inversion and square "
         f"root chains is k={k_long}")
     return res
+
+
+def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
+                plain_reps, products_total, bytes_total, keep=True):
+    """Fail unless err is 0, then time the kernel (profiler, cold L2), its
+    wrapper and its plain version (CUDA events) and print them with the
+    bound.  keep: record these numbers as the kernel's row (else only the
+    error counts)."""
+    if err != 0:
+        fail(f"{label}: kernel differs from its plain version, max abs err "
+             f"{err}")
+    ms, seen = kernel_device_ms(call, reps, KERNEL_SYMBOL[name])
+    wrapper_ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(plain_call, plain_reps,
+                       warmup=1 if plain_reps > 1 else 0)
+    b_ms, b_by = bound_ms(int_rate, products_total, bytes_total)
+    say(f"kernel {label}: bit-exact at {LANES} lanes, {ms:.4f} ms device "
+        f"with a cold L2 (mean of {seen} of {reps} launches; wrapper call "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms), bound {b_ms:.4f} "
+        f"ms by {b_by}")
+    prev = res.get(name)
+    if keep and prev is None:
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    elif prev is not None:
+        prev["max_abs_err"] = max(prev["max_abs_err"], err)
+
+
+def tiled_points(curve, rng, lanes, device, n_pts=64):
+    """(affine python-int points, x plane, y plane): n_pts random multiples
+    of G tiled over the lanes."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    hc = curve.hc
+    pts = [curve.g_mul(int.from_bytes(rng.bytes(32), "big") % hc.N or 1)
+           for _ in range(n_pts)]
+    idx = torch.arange(lanes, device=device) % n_pts
+    xs, ys = (torch.as_tensor(lb.int_to_limbs_batch([p[c] for p in pts]),
+                              dtype=torch.int32, device=device)[:, idx]
+              .contiguous() for c in range(2))
+    return pts, xs, ys
+
+
+def engine_kernel_checks(int_rate, curve, rng, device, res):
+    """The kernels behind the engine switches at LANES lanes, each
+    bit-exact against its plain version (edge values, digit 0 in window 0,
+    all-zero and all-15 digit columns), a few lanes against python ints,
+    timed beside the bound; #9 from lane tables and nibble digits, its
+    affine result against #7's and #4's for the same scalars; the widened
+    fixed-base kernels at their new shapes (#6 unsigned w = 8, signed w = 6
+    and w = 12; #5 at w = 6 and 12)."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import glv
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import point as pt
+    from secp256k1_tpu_torch.ops import scalar as sc
+    from secp256k1_tpu_torch.ops import table as tbl
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    hc = curve.hc
+    lanes = LANES
+    lane_bytes = 16 * 4
+    n_pts = 64
+    pts, qx, qy = tiled_points(curve, rng, lanes, device, n_pts)
+
+    def check(name, label, got, plain, call, plain_call, reps, plain_reps,
+              products, nbytes, keep=True):
+        timed_check(int_rate, res, name, label, max_abs_err(got, plain),
+                    call, plain_call, reps, plain_reps, products, nbytes,
+                    keep)
+
+    # point_double4 and point_add_mixed on random-Z points: lanes 0-7
+    # P == Q, 8-15 P == -Q, 16-19 P the identity (0, Z, 0).
+    p1 = random_z(qx, qy, rng, device)
+    perm = (torch.arange(lanes, device=device) * 7 + 3) % lanes
+    ax, ay = qx[:, perm].contiguous(), qy[:, perm].contiguous()
+    ax[:, :16] = qx[:, :16]
+    ay[:, :16] = qy[:, :16]
+    ay[:, 8:16] = fe.neg(qy[:, 8:16])
+    p1[1][:, 16:20] = p1[2][:, 16:20]
+    p1[0][:, 16:20] = 0
+    p1[2][:, 16:20] = 0
+    a = [None if 16 <= i < 20 else pts[i % n_pts] for i in range(24)]
+    b = [pts[int(perm[i]) % n_pts] if i >= 16 else
+         pts[i % n_pts] if i < 8 else hc.neg(pts[i % n_pts])
+         for i in range(24)]
+    got = K.point_double4(*p1)
+    check("point_double4", "point_double4", got, K.point_double4_plain(*p1),
+          lambda: K.point_double4(*p1), lambda: K.point_double4_plain(*p1),
+          50, 3, 4 * PT_DOUBLE * lanes, 6 * lane_bytes * lanes)
+    check_points(got, [hc.mul(16, x) if x else None for x in a], hc,
+                 "point_double4")
+    got = K.point_add_mixed(*p1, ax, ay)
+    check("point_add_mixed", "point_add_mixed", got,
+          K.point_add_mixed_plain(*p1, ax, ay),
+          lambda: K.point_add_mixed(*p1, ax, ay),
+          lambda: K.point_add_mixed_plain(*p1, ax, ay), 50, 3,
+          PT_ADD_MIXED * lanes, 8 * lane_bytes * lanes)
+    check_points(got, [hc.add(x, y) for x, y in zip(a, b)], hc,
+                 "point_add_mixed")
+
+    # point_lookup_add: accumulators p1, the lane tables of (ax, ay, 1).
+    base = pt.Point(ax, ay, fe.one((lanes,), device))
+    table = tbl.build_lane_table(base)
+    digits = torch.as_tensor(rng.integers(0, 16, lanes), dtype=torch.int32,
+                             device=device)
+    digits[:16] = torch.arange(16, device=device)
+    got = K.point_lookup_add(*p1, table, digits)
+    check("point_lookup_add", "point_lookup_add", got,
+          K.point_lookup_add_plain(*p1, table, digits),
+          lambda: K.point_lookup_add(*p1, table, digits),
+          lambda: K.point_lookup_add_plain(*p1, table, digits), 20, 2,
+          PT_ADD * lanes, (15 * 48 * 4 + 6 * lane_bytes + 4) * lanes)
+    check_points(got, [hc.add(x, hc.mul(int(d), y)) if d else x
+                       for x, y, d in zip(a, b, digits[:24].tolist())], hc,
+                 "point_lookup_add")
+
+    # The GLV kernels on u2 * Q (Q affine), the operands of verify's GLV.
+    q = pt.Point(qx, qy, fe.one((lanes,), device))
+    u2 = random_planes(rng, lanes, sc.N, device)
+    k1, k2, gp1, gp2 = glv._short_scalars(u2, q)
+    gp1, gp2 = pt._planes(gp1), pt._planes(gp2)
+    d1 = glv._nibble_digits_128(k1).contiguous()
+    d2 = glv._nibble_digits_128(k2).contiguous()
+    signed = K.glv_windowed_mult_signed_from_points(
+        *glv.glv_kernel_operands(u2, q))
+    # Edge digit columns: lane 24 all-zero d1, lane 25 all-zero d2, lane
+    # 26 all-15 d1 and d2, lane 27 digit 0 in window 0 of both.
+    d1[:, 24] = 0
+    d2[:, 25] = 0
+    d1[:, 26] = 15
+    d2[:, 26] = 15
+    d1[0, 27] = 0
+    d2[0, 27] = 0
+    edge = torch.zeros(lanes, dtype=torch.bool, device=device)
+    edge[24:28] = True
+    name = "glv_windowed_mult_from_points"
+    unsigned = K.glv_windowed_mult_from_points(d1, d2, gp1, gp2)
+    nz = int((d2[0] != 0).sum()) + int((d1[1:] != 0).sum()) \
+        + int((d2[1:] != 0).sum())
+    check(name, "glv unsigned (#7)", unsigned,
+          K.glv_windowed_mult_from_points_plain(d1, d2, gp1, gp2),
+          lambda: K.glv_windowed_mult_from_points(d1, d2, gp1, gp2),
+          lambda: K.glv_windowed_mult_from_points_plain(d1, d2, gp1, gp2),
+          5, 1, (26 * lanes + nz) * PT_ADD
+          + (2 * lanes + 4 * 31 * lanes) * PT_DOUBLE,
+          (2 * 32 * 4 + 9 * lane_bytes) * lanes)
+
+    def digit_ints(d):
+        vals = d[:, :32].t().tolist()
+        return [sum(v << (4 * (31 - i)) for i, v in enumerate(col))
+                for col in vals]
+
+    def affine_ints(planes, n):
+        xs, ys, zs = (lb.limbs_to_int_batch(c[:, :n]) for c in planes)
+        return [(x * pow(z, -1, hc.P) % hc.P, y * pow(z, -1, hc.P) % hc.P)
+                for x, y, z in zip(xs, ys, zs)]
+    g1, g2 = affine_ints(gp1, 32), affine_ints(gp2, 32)
+    check_points(unsigned, [hc.add(hc.mul(a1, x), hc.mul(a2, y))
+                            for a1, a2, x, y in zip(digit_ints(d1),
+                                                    digit_ints(d2), g1, g2)],
+                 hc, "glv unsigned (#7)")
+
+    t1 = tbl.build_lane_table(pt.Point(*gp1))
+    t2 = tbl.build_lane_table(pt.Point(*gp2))
+    name = "glv_windowed_mult"
+    tabled = K.glv_windowed_mult(d1, d2, t1, t2)
+    check(name, "glv from lane tables (#9)", tabled,
+          K.glv_windowed_mult_plain(d1, d2, t1, t2),
+          lambda: K.glv_windowed_mult(d1, d2, t1, t2),
+          lambda: K.glv_windowed_mult_plain(d1, d2, t1, t2), 5, 1,
+          nz * PT_ADD + int((d1[0] != 0).sum()) * PT_ADD
+          + 4 * 31 * lanes * PT_DOUBLE,
+          (2 * 15 * 48 * 4 + 2 * 32 * 4 + 3 * lane_bytes) * lanes)
+    aff7, aff9, aff4 = (pt.to_affine(pt.Point(*c))
+                        for c in (unsigned, tabled, signed))
+    same79 = all(torch.equal(x, y) for x, y in zip(aff7, aff9))
+    same74 = all(torch.equal(x[:, ~edge], y[:, ~edge])
+                 for x, y in zip(aff7, aff4))
+    if not (same79 and same74):
+        fail(f"glv: affine results differ (#7 vs #9 {same79}, #7 vs #4 "
+             f"{same74})")
+    say(f"kernel glv: #9's affine result equals #7's on all {lanes} lanes "
+        f"and #4's on the {lanes - int(edge.sum())} lanes of unchanged "
+        f"digits; projective X, Y, Z differ as the schedules do")
+
+    # The widened fixed-base kernels at their new shapes.
+    ks = random_planes(rng, lanes, sc.N, device)
+    k_ints = lb.limbs_to_int_batch(ks[:, :16])
+    want_kg = [curve.g_mul(v) for v in k_ints]
+    for signed_digits, w in ((False, 8), (True, 6), (True, 12)):
+        table = tbl.base_table(device, w, signed_digits)
+        digits = (tbl._signed_digits(ks, w) if signed_digits
+                  else tbl._raw_digits(ks, 8, 32).to(torch.int32))
+        digits = digits.contiguous()
+        mag = digits & 0xFFFF if signed_digits else digits
+        label = f"base scan {'signed' if signed_digits else 'unsigned'} w={w}"
+        got = K.base_windowed_add(digits, table, signed_digits)
+        products = int((mag[1:] != 0).sum()) * PT_ADD_MIXED
+        selects = digits.shape[0] * table.shape[1] * 16 * lanes
+        say(f"kernel {label}: {digits.shape[0]} windows of {table.shape[1]}"
+            f" entries, {products} 32-bit products, {selects} masked "
+            f"selects")
+        check("base_windowed_add", label, got,
+              K.base_windowed_add_plain(digits, table, signed_digits),
+              lambda: K.base_windowed_add(digits, table, signed_digits),
+              lambda: K.base_windowed_add_plain(digits, table,
+                                                signed_digits),
+              10, 1, max(products, selects),
+              (digits.shape[0] * 4 + 3 * lane_bytes) * lanes
+              + table.numel() * 4, keep=False)
+        check_points(got, want_kg, hc, label)
+        if not signed_digits:
+            continue
+        label = f"base final w={w}"
+        got = K.base_windowed_add_final(digits, table, *p1)
+        check("base_windowed_add_final", label, got,
+              K.base_windowed_add_final_plain(digits, table, *p1),
+              lambda: K.base_windowed_add_final(digits, table, *p1),
+              lambda: K.base_windowed_add_final_plain(digits, table, *p1),
+              10, 1, products + lanes * PT_ADD,
+              (digits.shape[0] * 4 + 6 * lane_bytes) * lanes
+              + table.numel() * 4, keep=False)
+        check_points(got, [hc.add(g, x) for g, x in zip(want_kg, a[:16])],
+                     hc, label)
 
 
 class MsmPoints:
@@ -787,9 +1028,18 @@ def recording(names):
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     calls = {name: [] for name in names}
     wrappers = {name: getattr(K, name) for name in names}
+    copies = {}
 
     def copy(a):
-        return a.clone() if isinstance(a, torch.Tensor) else a
+        # One copy of a tensor that several launches read (a lane table):
+        # keyed by its storage, view and version, the original held so
+        # that its memory is not reused while recording.
+        if not isinstance(a, torch.Tensor):
+            return a
+        key = (a.data_ptr(), tuple(a.shape), a.stride(), a._version)
+        if key not in copies:
+            copies[key] = (a, a.clone())
+        return copies[key][1]
 
     def keep(name):
         def call(*args, **kwargs):
@@ -809,8 +1059,13 @@ def recording(names):
 
 def replay_plain(label, calls):
     """Each recorded launch of a path through its kernel's plain version,
-    at the width the path gave it: bit-exact, or the run fails."""
+    at the width the path gave it: bit-exact, or the run fails.  One line
+    a path: each kernel's launches and operand widths."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
+    if not calls:
+        return
+    t0 = time.perf_counter()
+    done = []
     for name, recs in calls.items():
         plain = getattr(K, f"{name}_plain")
         recs = [r for r in recs if r[0][0].shape[1]]     # skip empty batches
@@ -820,9 +1075,11 @@ def replay_plain(label, calls):
         if err:
             fail(f"path {label}: a launch of {name} differs from its plain "
                  f"version, max abs err {err}")
-        say(f"path {label}: all {len(recs)} launches of {name} (operand "
-            f"widths {widths[0]}-{widths[-1]}, {len(widths)} distinct) equal "
-            f"the plain version on their operands")
+        span = f"{widths[0]}" if len(widths) == 1 \
+            else f"{widths[0]}-{widths[-1]}, {len(widths)} distinct"
+        done.append(f"{name} {len(recs)} (widths {span})")
+    say(f"path {label}: every launch equals its plain version on its "
+        f"operands ({time.perf_counter() - t0:.1f} s): {'; '.join(done)}")
 
 
 def run_path(label, kernels, fn, replay=()):
@@ -1070,6 +1327,166 @@ def schnorr_path(curve, signers, rng):
         f"vectors {listed[0]['index']}-{listed[-1]['index']} in the batch, "
         f"{int((~expected).sum())} of them false)")
     return priv, msgs, aux, pub_x, sigs
+
+
+@contextlib.contextmanager
+def switches(mega=True, mega_signed=True, base_signed=True, base_window=8):
+    """The JAX package's engine switches, set in the port for the block and
+    restored to their defaults after it."""
+    from secp256k1_tpu_torch.ops import table as tbl
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    K.set_mega(mega)
+    K.set_mega_signed(mega_signed)
+    tbl.set_base_signed(base_signed)
+    tbl.set_base_window(base_window)
+    try:
+        yield
+    finally:
+        K.set_mega(True)
+        K.set_mega_signed(True)
+        tbl.set_base_signed(True)
+        tbl.set_base_window(8)
+
+
+class EcdhBatch:
+    """LANES lanes of (private key, compressed peer key): the signers' keys
+    tiled over the lanes, each lane's peer the public key of the next key,
+    and corrupted lanes: a bad prefix, an x with no square root, k = 0 and
+    k >= n (LANES / 1024 lanes each).  Expected statuses; the shared x of
+    N_DISTINCT sampled lanes from python ints."""
+
+    def __init__(self, curve, signers, rng):
+        from secp256k1_tpu_torch.utils import errors as ec
+        hc = curve.hc
+        n_keys = len(signers.scalars)
+        self.priv = signers.priv.copy()
+        peer_of = (signers.key_of + 1) % n_keys
+        cmp_rows = np.stack([np.frombuffer(hc.encode_point(p, True),
+                                           np.uint8)
+                             for p in signers.points])
+        self.pubs = cmp_rows[peer_of]
+        self.status = np.full((LANES,), ec.OK, np.int32)
+        picks = rng.permutation(np.arange(len(signers.kat), LANES))
+        per_kind = max(2, LANES // 1024)
+        kinds = [picks[i * per_kind:(i + 1) * per_kind] for i in range(5)]
+        self.pubs[kinds[0], 0] = 0x05
+        self.pubs[kinds[1], 1:] = np.frombuffer(
+            non_residue_x(hc).to_bytes(32, "big"), np.uint8)
+        self.priv[kinds[2]] = 0
+        self.priv[kinds[3]] = np.frombuffer(hc.N.to_bytes(32, "big"),
+                                            np.uint8)
+        self.priv[kinds[4]] = 0xFF                  # k = 2^256 - 1 >= n
+        self.status[kinds[0]] = ec.ERR_INVALID_PUBLIC_KEY
+        self.status[kinds[1]] = ec.ERR_INVALID_PUBLIC_KEY
+        for kind in kinds[2:]:
+            self.status[kind] = ec.ERR_INVALID_SCALAR
+        ok = np.nonzero(self.status == ec.OK)[0]
+        self.sampled = rng.choice(ok, N_DISTINCT, replace=False)
+        self.want = {int(i): curve.g_mul(
+            signers.scalars[signers.key_of[i]]
+            * signers.scalars[peer_of[i]] % hc.N)[0] for i in self.sampled}
+
+
+def ecdh_paths(batch):
+    """ecdh_batch_arrays on LANES lanes under each GLV engine: statuses,
+    the sampled lanes against python ints, every lane against the default
+    engine's bytes, and every launch of each path against its plain
+    version."""
+    from secp256k1_tpu_torch.models import ecdh
+    from secp256k1_tpu_torch.utils import errors as ec
+    default = None
+    for tag, flags, kernels in ECDH_ENGINES:
+        label = f"ECDH ({tag})"
+        with switches(**flags):
+            shared, status = run_path(
+                label, kernels,
+                lambda: ecdh.ecdh_batch_arrays(batch.priv, batch.pubs),
+                replay=kernels)
+        check_statuses(label, status, batch.status)
+        if shared[batch.status != ec.OK].any():
+            fail(f"path {label}: a failed lane is not zeroed")
+        for i, x in batch.want.items():
+            if int.from_bytes(shared[i].tobytes(), "big") != x:
+                fail(f"path {label}: lane {i} differs from python ints")
+        if default is None:
+            default = shared
+        elif not np.array_equal(shared, default):
+            bad = np.nonzero((shared != default).any(1))[0]
+            fail(f"path {label}: {bad.size} lanes differ from the default "
+                 f"engine, first {bad[:5].tolist()}")
+        say(f"path {label}: {len(batch.want)} sampled lanes equal python "
+            f"ints; every lane equals the default engine's bytes")
+    return default
+
+
+def base_switch_paths(triples, signers, rng, hc, default_sigs):
+    """verify_batch_arrays (corrupted lanes) and ECDSA sign_batch_arrays on
+    LANES lanes under each fixed-base switch: every status as in the
+    default paths, every signature equal to the default path's (RFC 6979
+    is deterministic) and the RFC 6979 vectors byte-exact; every launch
+    against its plain version."""
+    from secp256k1_tpu_torch.models import ecdsa
+    for tag, flags, verify_kernels, sign_kernels in BASE_SWITCHES:
+        pubs, digests, sigs, lens, expected = build_batch(
+            triples, LANES, False, rng, hc)
+        label = f"verify ({tag})"
+        with switches(**flags):
+            got = run_path(label, verify_kernels,
+                           lambda: ecdsa.verify_batch_arrays(
+                               pubs, digests, sigs, lens,
+                               reject_malleable=True),
+                           replay=verify_kernels)
+        check_statuses(label, got, expected)
+        label = f"ECDSA sign ({tag})"
+        with switches(**flags):
+            out_sigs, recid, status = run_path(
+                label, sign_kernels,
+                lambda: ecdsa.sign_batch_arrays(signers.priv,
+                                                signers.digests),
+                replay=sign_kernels)
+        check_statuses(label, status, np.zeros_like(status))
+        if not np.array_equal(out_sigs, default_sigs[0]) \
+                or not np.array_equal(recid, default_sigs[1]):
+            fail(f"path {label}: signatures differ from the default path's")
+        say(f"path {label}: all {LANES} signatures and recovery ids equal "
+            f"the default path's (the {len(signers.kat)} RFC 6979 vectors "
+            f"among them)")
+
+
+def engine_throughput(batch, triples, sign_planes, device):
+    """ECDH/s end to end and of _ecdh_e2e_core under each GLV engine;
+    verify/s of _verify_impl and sign/s of _sign_e2e_core under each
+    fixed-base switch (CUDA events, median of 7).  Returns the ECDH core's
+    byte planes."""
+    from secp256k1_tpu_torch.models import ecdh, ecdsa
+    from secp256k1_tpu_torch.utils import batching as bt
+
+    def rate(ms):
+        return LANES / ms * 1e3
+    want_odd = bt.scalar_plane(batch.pubs[:, 0] == 0x03, LANES, fill=False,
+                               dtype=torch.bool, device=device)
+    planes = (bt.byte_plane_np(batch.priv, LANES, device), want_odd,
+              bt.byte_plane_np(batch.pubs[:, 1:], LANES, device))
+    for tag, flags, _ in ECDH_ENGINES:
+        with switches(**flags):
+            e2e = wall_ms(lambda: ecdh.ecdh_batch_arrays(batch.priv,
+                                                         batch.pubs), 5)
+            core = median_cuda_ms(lambda: ecdh._ecdh_e2e_core(*planes))
+        say(f"throughput: ECDH ({tag}) ecdh_batch_arrays end to end "
+            f"{e2e[0]:.1f} ms (median of 5, range {e2e[1]:.1f}-"
+            f"{e2e[2]:.1f}) = {rate(e2e[0]):.1f} ECDH/s; _ecdh_e2e_core "
+            f"{core[0]:.3f} ms (median of 7, range {core[1]:.3f}-"
+            f"{core[2]:.3f}) = {rate(core[0]):.1f} ECDH/s")
+    verify_planes = core_planes(triples, LANES, device)
+    for tag, flags, _, _ in BASE_SWITCHES:
+        with switches(**flags):
+            ver = median_cuda_ms(lambda: ecdsa._verify_impl(*verify_planes))
+            sig = median_cuda_ms(lambda: ecdsa._sign_e2e_core(*sign_planes))
+        say(f"throughput: ({tag}) _verify_impl {ver[0]:.3f} ms (median of "
+            f"7, range {ver[1]:.3f}-{ver[2]:.3f}) = {rate(ver[0]):.1f} "
+            f"verify/s; _sign_e2e_core {sig[0]:.3f} ms (range {sig[1]:.3f}-"
+            f"{sig[2]:.3f}) = {rate(sig[0]):.1f} sign/s")
+    return planes
 
 
 def core_planes(triples, lanes, device):
@@ -1332,16 +1749,27 @@ def main():
     if "--profile-msm" in sys.argv[1:]:
         return profile_msm()
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def phase(label):
+        now = time.perf_counter()
+        say(f"phase {label}: {now - marks[-1]:.1f} s")
+        marks.append(now)
     int_rate = phase_device()
     import_port()
     phase_build()
+    phase("device and build")
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     device = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     curve = HostCurve()
     res = kernel_checks(int_rate, curve, rng, device)
+    phase("kernels")
+    engine_kernel_checks(int_rate, curve, rng, device, res)
+    phase("engine kernels")
     msm_data = MsmPoints(curve, rng, device)
     msm_kernel_checks(int_rate, msm_data, rng, device, res)
+    phase("bucket kernel")
 
     t0 = time.perf_counter()
     triples = make_triples(curve, rng)
@@ -1353,10 +1781,19 @@ def main():
     main_path(triples, rng, curve.hc, wide=True)
     ecdsa_out = ecdsa_sign_path(curve, signers, rng)
     schnorr_out = schnorr_path(curve, signers, rng)
+    phase("signature paths")
+    ecdh_batch = EcdhBatch(curve, signers, rng)
+    ecdh_paths(ecdh_batch)
+    phase("ECDH paths")
+    base_switch_paths(triples, signers, rng, curve.hc, ecdsa_out[:2])
+    phase("fixed-base switch paths")
     msm_paths(msm_data, rng)
+    phase("MSM paths")
     throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
     msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
+    ecdh_planes = engine_throughput(ecdh_batch, triples, sign_planes, device)
+    phase("throughput")
     if "--profile" in sys.argv[1:]:
         from secp256k1_tpu_torch.models import ecdsa
         verify_planes = core_planes(triples, LANES, device)
@@ -1366,6 +1803,10 @@ def main():
         profile_core(f"_sign_e2e_core at {LANES} lanes",
                      lambda: ecdsa._sign_e2e_core(*sign_planes),
                      [KERNEL_SYMBOL[name] for name in SIGN_KERNELS])
+        from secp256k1_tpu_torch.models import ecdh
+        profile_core(f"_ecdh_e2e_core at {LANES} lanes",
+                     lambda: ecdh._ecdh_e2e_core(*ecdh_planes),
+                     [KERNEL_SYMBOL[name] for name in ECDH_ENGINES[0][2]])
         child = subprocess.run([sys.executable, os.path.abspath(__file__),
                                 "--profile-msm"], cwd=HERE, timeout=600)
         if child.returncode:
@@ -1381,7 +1822,7 @@ def main():
         per_path = {label: counts[name]
                     for label, counts in PATH_LAUNCHES.items()
                     if counts[name]}
-        if not per_path:
+        if not per_path and name not in NO_PATH_KERNELS:
             fail(f"{name} was launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,

@@ -4,12 +4,15 @@ signed G table, as numpy arrays, to and from the port's tensors.
 This system has no weights.  What the two packages share are
 
 - limb and digit planes: numpy [L, *batch] uint32 (the JAX layout, flat
-  [L, B] or tiled [L, B/128, 128]) <-> int32 [L, B] tensors;
+  [L, B] or tiled [L, B/128, 128], the GLV nibble digits [W, S, 128]
+  among them) <-> int32 [L, B] tensors;
 - point batches: the JAX `Point` (three such planes) <-> the port's;
 - the partial buckets of the MSM bucket kernel: the JAX slab
   [W, nb, 3, 16, blk, 128] <-> the port's [W, nb, 3, 16, M], M = blk * 128
   (lane slot j = sublane * 128 + lane);
-- the signed G table: numpy [33, 128, 2, 16] <-> int32 tensor;
+- the per-lane point tables of the GLV engines: the JAX
+  [15, 3, 16, S, 128] (or flat [15, 3, 16, B]) <-> int32 [15, 3, 16, B];
+- the G tables: numpy [W, E, 2, 16] <-> int32 tensor;
 - a keyed-verify `PubkeyCache`: its affine key planes qx, qy, numpy
   [16, K] -> the port's cache.
 
@@ -65,6 +68,25 @@ def buckets_from_torch(t: torch.Tensor) -> np.ndarray:
     arr = t.detach().cpu().numpy().astype(np.uint32)
     assert arr.shape[-1] % 128 == 0
     return arr.reshape(arr.shape[:4] + (-1, 128))
+
+
+def lane_table_to_torch(table, device="cpu") -> torch.Tensor:
+    """A JAX per-lane table [15, 3, 16, *batch] (flat or tiled) ->
+    contiguous int32 [15, 3, 16, B]."""
+    arr = np.asarray(table)
+    flat = arr.reshape(arr.shape[:3] + (-1,))
+    return torch.as_tensor(flat.astype(np.int64),
+                           device=device).to(lb.DTYPE).contiguous()
+
+
+def lane_table_from_torch(t: torch.Tensor, tiled: bool = False):
+    """int32 [15, 3, 16, B] -> numpy uint32, [15, 3, 16, B/128, 128] if
+    tiled."""
+    arr = t.detach().cpu().numpy().astype(np.uint32)
+    if tiled:
+        assert arr.shape[-1] % 128 == 0
+        return arr.reshape(arr.shape[:3] + (-1, 128))
+    return arr
 
 
 def table_to_torch(table, device="cpu") -> torch.Tensor:

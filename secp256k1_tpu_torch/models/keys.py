@@ -3,8 +3,9 @@
 A copy of `secp256k1_tpu.models.keys` on the port's python-int curve
 (`utils/hostcurve.py`): a private scalar always lies in [1, n), a public key
 is never the identity and always on the curve, and keys are sampled by
-rejection.  Single-key work runs on the host; batches of keys go through
-the device pipelines of `models/ecdsa.py`.
+rejection.  Key checks and encodings run on the host; `sign`, `verify` and
+`ecdh` go through the device pipelines of `models/ecdsa.py` and
+`models/ecdh.py`.
 """
 
 from __future__ import annotations
@@ -106,6 +107,12 @@ class PrivateKey:
 
     def __hash__(self):
         return hash(self.bytes())
+
+    def ecdh(self, remote: PublicKey, device=None) -> bytes:
+        """SEC1 §3.3.1 shared secret, x-coordinate bytes: a one-pair batch
+        of `ecdh.ecdh_batch` on the device (the GPU unless "cpu")."""
+        from . import ecdh as _ecdh
+        return _ecdh.ecdh_batch([self], [remote], device=device)[0]
 
     def sign(self, digest: bytes, rand=None, opts=None,
              device=None) -> bytes:

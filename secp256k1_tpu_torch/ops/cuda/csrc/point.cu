@@ -1,17 +1,24 @@
-// point_add and point_double: lane-wise complete projective addition and
-// doubling on int32 [16, B] limb planes.
+// point_add, point_double, point_double4 and point_add_mixed: lane-wise
+// complete projective addition, doubling, four chained doublings and mixed
+// addition on int32 [16, B] limb planes.
 //
 // Replaces the Pallas kernels point_add (secp256k1_tpu/ops/pallas/kernels.py
-// :1376, padd :1308 -> _point_add_body :615) and point_double (:1380,
-// pdouble :1313 -> _point_double_body :653).  Both are thin wrappers over
-// pt_add and pt_double of point.cuh, whose step order is the Pallas bodies',
-// so the canonical X, Y, Z equal the JAX package's and the plain PyTorch
-// formulas' (ops/point.py) bit for bit.
+// :1376, padd :1308 -> _point_add_body :615), point_double (:1380, pdouble
+// :1313 -> _point_double_body :653), point_double4 (:1384, pdouble4 :1317:
+// four _point_double_body, one canonical store) and point_add_mixed
+// (:1413, pmixed :1325 -> _point_add_mixed_body :676, RCB Algorithm 8 with
+// Z2 = 1).  All are thin wrappers over pt_add, pt_double and pt_add_mixed
+// of point.cuh, whose step order is the Pallas bodies', so the canonical
+// X, Y, Z equal the JAX package's and the plain PyTorch formulas'
+// (ops/point.py) bit for bit.
 //
 // Bound: bytes.  Per lane point_add reads 6 planes and writes 3 (9 x 64 B)
 // and does 12 field products and 2 products by b3 (932 32 x 32 -> 64-bit
 // products); on an H100 the 576 bytes take longer than the products.
-// point_double moves 6 planes for 2 squares, 6 products and one by b3.
+// point_double moves 6 planes for 2 squares, 6 products and one by b3;
+// point_double4 the same 6 planes for four times the products (still
+// bytes: 4 x 530 products against 384 B); point_add_mixed 8 planes for 11
+// products and 2 by b3.
 // Design: one thread per lane, 128 threads a block, no shared memory; any
 // B, the ragged edge masked by the lane bound (no padding to a tile).
 #include <cuda_runtime.h>
@@ -40,6 +47,31 @@ __global__ void k_point_double(const int* x, const int* y, const int* z,
   pt_store(ox, oy, oz, lanes, lane, p);
 }
 
+__global__ void k_point_dbl4(const int* x, const int* y, const int* z,
+                             int* ox, int* oy, int* oz, int lanes) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  Pt p;
+  pt_load(x, y, z, lanes, lane, p);
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) pt_double(p, p);
+  pt_store(ox, oy, oz, lanes, lane, p);
+}
+
+__global__ void k_point_mixed(const int* x1, const int* y1, const int* z1,
+                              const int* x2, const int* y2, int* ox, int* oy,
+                              int* oz, int lanes) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  Pt p;
+  u32 qx[8], qy[8];
+  pt_load(x1, y1, z1, lanes, lane, p);
+  load_fe(x2, lanes, lane, qx);
+  load_fe(y2, lanes, lane, qy);
+  pt_add_mixed(p, qx, qy, p);
+  pt_store(ox, oy, oz, lanes, lane, p);
+}
+
 static const int kThreads = 128;
 
 extern "C" int point_add(const void* x1, const void* y1, const void* z1,
@@ -60,5 +92,25 @@ extern "C" int point_double(const void* x, const void* y, const void* z,
   k_point_double<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)x, (const int*)y, (const int*)z, (int*)ox, (int*)oy,
       (int*)oz, lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int point_double4(const void* x, const void* y, const void* z,
+                             void* ox, void* oy, void* oz, int lanes,
+                             void* stream) {
+  dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads));
+  k_point_dbl4<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)x, (const int*)y, (const int*)z, (int*)ox, (int*)oy,
+      (int*)oz, lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int point_add_mixed(const void* x1, const void* y1, const void* z1,
+                               const void* x2, const void* y2, void* ox,
+                               void* oy, void* oz, int lanes, void* stream) {
+  dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads));
+  k_point_mixed<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)x1, (const int*)y1, (const int*)z1, (const int*)x2,
+      (const int*)y2, (int*)ox, (int*)oy, (int*)oz, lanes);
   return (int)cudaGetLastError();
 }

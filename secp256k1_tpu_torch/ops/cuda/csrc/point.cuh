@@ -9,6 +9,10 @@
 // plain PyTorch version's (ops/point.py), not only the affine point.  Every
 // field op here is canonical; the Pallas bodies' lazy reduction changes only
 // non-canonical intermediates.
+//
+// Also the per-lane point tables of the GLV kernels and of point_lookup_add:
+// LocalTable (built in a thread's local memory) and LaneTable (read from
+// global memory), each selecting an entry by a masked scan of all entries.
 #pragma once
 
 #include "field.cuh"
@@ -147,3 +151,78 @@ __device__ __forceinline__ void pt_double(const Pt& p, Pt& r) {
   fe_copy(r.y, y3);
   fe_copy(r.z, z3);
 }
+
+// p = the identity (0, 1, 0).
+__device__ __forceinline__ void pt_set_identity(Pt& p) {
+  fe_set_small(p.x, 0);
+  fe_set_small(p.y, 1);
+  fe_set_small(p.z, 0);
+}
+
+// A per-lane table of E projective points in global memory, int32
+// [E, 3, 16, lanes] of 16-bit limbs, lane-minor: the 32 threads of a warp
+// read 32 adjacent words of each limb row (coalesced).
+template <int E>
+struct LaneTable {
+  const int* base;
+  int lanes, lane;
+
+  // sel |= entry e where mag == e + 1, over all E entries: every lane reads
+  // every entry in the same order, so no address or trip count depends on
+  // the (possibly secret) digit.
+  __device__ __forceinline__ void scan(u32 mag, Pt& sel) const {
+#pragma unroll 1
+    for (int e = 0; e < E; ++e) {
+      const u32 mask = 0u - (u32)(mag == (u32)(e + 1));
+      const int* ent = base + (size_t)e * 48 * lanes + lane;
+      u32 w[8];
+      load_fe(ent, lanes, 0, w);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sel.x[k] |= w[k] & mask;
+      load_fe(ent + (size_t)16 * lanes, lanes, 0, w);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sel.y[k] |= w[k] & mask;
+      load_fe(ent + (size_t)32 * lanes, lanes, 0, w);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sel.z[k] |= w[k] & mask;
+    }
+  }
+};
+
+// A per-lane table [P, 2P, .., EP] built in the thread's local memory from
+// P: 1 doubling and E - 2 complete adds.
+template <int E>
+struct LocalTable {
+  Pt t[E];
+
+  __device__ __forceinline__ void build(const Pt& p) {
+    pt_copy(t[0], p);
+    pt_double(t[0], t[1]);
+#pragma unroll 1
+    for (int e = 2; e < E; ++e) pt_add(t[e - 1], t[0], t[e]);
+  }
+
+  // Every entry copied once from a lane-minor table in global memory, int32
+  // [E, 3, 16, lanes] (the layout LaneTable reads).
+  __device__ __forceinline__ void load(const int* base, int lanes, int lane) {
+#pragma unroll 1
+    for (int e = 0; e < E; ++e) {
+      const int* ent = base + (size_t)e * 48 * lanes;
+      pt_load(ent, ent + (size_t)16 * lanes, ent + (size_t)32 * lanes, lanes,
+              lane, t[e]);
+    }
+  }
+
+  __device__ __forceinline__ void scan(u32 mag, Pt& sel) const {
+#pragma unroll 1
+    for (int e = 0; e < E; ++e) {
+      const u32 mask = 0u - (u32)(mag == (u32)(e + 1));
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sel.x[k] |= t[e].x[k] & mask;
+        sel.y[k] |= t[e].y[k] & mask;
+        sel.z[k] |= t[e].z[k] & mask;
+      }
+    }
+  }
+};

@@ -1,13 +1,14 @@
-"""The port's nine kernels: wrappers, plain versions, launch counts.
+"""The port's fourteen kernels: wrappers, plain versions, launch counts,
+and the GLV engine switches.
 
-Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` that ECDSA verify,
-sign and recover, BIP-0340 sign and verify and the Pippenger and Straus
-MSM reach has here
+Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` has here
 
 - a wrapper (`mod_mul`, `mod_square`, `mod_pow2k`,
   `glv_windowed_mult_signed_from_points`, `base_windowed_add_final`,
-  `base_windowed_add`, `point_add`, `point_double`,
-  `msm_bucket_accumulate_all`): given
+  `base_windowed_add`, `glv_windowed_mult_from_points`,
+  `msm_bucket_accumulate_all`, `glv_windowed_mult`, `point_add`,
+  `point_double`, `point_double4`, `point_add_mixed`,
+  `point_lookup_add`): given
   CPU tensors it runs the plain version; given CUDA tensors it launches the
   hand-written CUDA kernel (`csrc/*.cu`, built by `build.py`) or raises.
   There is no fallback from the kernel to the plain version;
@@ -19,12 +20,18 @@ MSM reach has here
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
-Digit planes are int32 [W, B].
+Digit planes are int32 [W, B]; per-lane point tables int32 [15, 3, 16, B].
+
+The switches `mega_enabled`/`set_mega` and
+`mega_signed_enabled`/`set_mega_signed` are the JAX package's own
+(`SECP256K1_TPU_MEGA`, `SECP256K1_TPU_MEGA_SIGNED`, read at import, both on
+by default): `ops/glv.py` takes the GLV engine they name on both devices.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -37,10 +44,37 @@ MOD_ID = {P: 0, N: 1}
 
 KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "glv_windowed_mult_signed_from_points", "base_windowed_add_final",
-           "base_windowed_add", "point_add", "point_double",
-           "msm_bucket_accumulate_all")
+           "base_windowed_add", "glv_windowed_mult_from_points",
+           "msm_bucket_accumulate_all", "glv_windowed_mult", "point_add",
+           "point_double", "point_double4", "point_add_mixed",
+           "point_lookup_add")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+
+
+# The whole GLV loop in one launch (mega), with signed 8-entry windows
+# (signed) or unsigned 15-entry ones; off: lane tables, point_double4 and
+# point_lookup_add launches.
+_MEGA = os.environ.get("SECP256K1_TPU_MEGA", "1") != "0"
+_MEGA_SIGNED = os.environ.get("SECP256K1_TPU_MEGA_SIGNED", "1") != "0"
+
+
+def mega_enabled() -> bool:
+    return _MEGA
+
+
+def set_mega(value: bool) -> None:
+    global _MEGA
+    _MEGA = bool(value)
+
+
+def mega_signed_enabled() -> bool:
+    return _MEGA_SIGNED
+
+
+def set_mega_signed(value: bool) -> None:
+    global _MEGA_SIGNED
+    _MEGA_SIGNED = bool(value)
 
 
 def reset_counts() -> None:
@@ -111,6 +145,63 @@ def mod_pow2k_plain(a, k: int, modulus: int) -> torch.Tensor:
     return a
 
 
+def _glv_plain(d1, d2, t1, t2, signed: bool, from_identity: bool):
+    """The GLV loop over lists of per-lane table entries t1, t2 (entry e
+    holds (e + 1) * P).  Digits [W, B], most significant window first:
+    magnitude | sign << 4 when signed (y negated for a set sign bit), else
+    the magnitude alone.  from_identity: start from the identity and double
+    4 times in window 0 too (`_glv_mega_kernel`); else window 0 is a select
+    from table 1 with the whole identity where the magnitude is 0, then a
+    lookup-add from table 2 (`_glv_mega_frompoints_kernel`).  Each later
+    window: 4 doublings, then 2 masked lookup-adds (the accumulator passed
+    through for magnitude 0).  Returns canonical (x, y, z) planes."""
+    from .. import field as fe
+    from .. import point as pt
+    f = fe.F_PLAIN
+    zero = torch.zeros((lb.NLIMBS,) + tuple(d1.shape[1:]), dtype=lb.DTYPE,
+                       device=d1.device)
+
+    def select_entry(tab, d):
+        mag = d & 0xF if signed else d
+        sel = pt.Point(zero, zero, zero)
+        for e, ent in enumerate(tab):
+            sel = pt.select(mag == e + 1, ent, sel)
+        if signed:
+            is_neg = (d >> 4) == 1
+            sel = pt.Point(sel.x, f.select(is_neg, f.neg(sel.y), sel.y),
+                           sel.z)
+        return sel, mag
+
+    def lookup_add(acc, tab, d):
+        sel, mag = select_entry(tab, d)
+        return pt.select(mag == 0, acc, pt.add(acc, sel, f))
+
+    if from_identity:
+        acc, w0 = pt.identity(d1.shape[1:], d1.device), 0
+    else:
+        sel0, mag0 = select_entry(t1, d1[0])
+        one = f.one(d1.shape[1:], d1.device)
+        acc = pt.Point(sel0.x, f.select(mag0 == 0, one, sel0.y), sel0.z)
+        acc, w0 = lookup_add(acc, t2, d2[0]), 1
+    for w in range(w0, d1.shape[0]):
+        for _ in range(4):
+            acc = pt.double(acc, f)
+        acc = lookup_add(acc, t1, d1[w])
+        acc = lookup_add(acc, t2, d2[w])
+    return tuple(c.contiguous() for c in acc)
+
+
+def _build_table_plain(p, n_entries):
+    """[P, 2P, .., E*P]: 1 doubling and E - 2 complete adds."""
+    from .. import field as fe
+    from .. import point as pt
+    p = pt.Point(*p)
+    tab = [p, pt.double(p, fe.F_PLAIN)]
+    for _ in range(2, n_entries):
+        tab.append(pt.add(tab[-1], p, fe.F_PLAIN))
+    return tab
+
+
 def glv_windowed_mult_signed_from_points_plain(d1, d2, p1, p2):
     """k1*P1 + k2*P2 from signed 4-bit window digits, the function of the
     Pallas `_glv_mega_frompoints_kernel(signed_digits=True, n_entries=8)`.
@@ -122,60 +213,55 @@ def glv_windowed_mult_signed_from_points_plain(d1, d2, p1, p2):
     then per window 4 doublings and 2 masked lookup-adds (y negated for a
     set sign bit, accumulator passed through for magnitude 0).  Returns
     canonical (x, y, z) planes."""
-    from .. import field as fe
+    return _glv_plain(d1, d2, _build_table_plain(p1, 8),
+                      _build_table_plain(p2, 8), True, False)
+
+
+def glv_windowed_mult_from_points_plain(d1, d2, p1, p2):
+    """k1*P1 + k2*P2 from unsigned nibble digits, the function of the
+    Pallas `_glv_mega_frompoints_kernel(signed_digits=False,
+    n_entries=15)`: d1, d2 int32 [W, B] in [0, 15], most significant first;
+    tables [P, .., 15P] per lane (1 doubling + 13 adds); window 0 a select
+    (the identity where the digit is 0), no y negation.  Returns canonical
+    (x, y, z) planes."""
+    return _glv_plain(d1, d2, _build_table_plain(p1, 15),
+                      _build_table_plain(p2, 15), False, False)
+
+
+def _lane_table_entries(table):
+    """int32 [E, 3, 16, B] -> [Point per entry]."""
     from .. import point as pt
-    f = fe.F_PLAIN
-
-    def build_table(p):
-        tab = [p, pt.double(p, f)]
-        for _ in range(2, 8):
-            tab.append(pt.add(tab[-1], p, f))
-        return tab
-
-    t1 = build_table(pt.Point(*p1))
-    t2 = build_table(pt.Point(*p2))
-    zero = torch.zeros_like(p1[0])
-
-    def select_entry(tab, d):
-        mag = d & 0xF
-        sel = pt.Point(zero, zero, zero)
-        for e, ent in enumerate(tab):
-            sel = pt.select(mag == e + 1, ent, sel)
-        is_neg = (d >> 4) == 1
-        return pt.Point(sel.x, f.select(is_neg, f.neg(sel.y), sel.y),
-                        sel.z), mag
-
-    def lookup_add(acc, tab, d):
-        sel, mag = select_entry(tab, d)
-        return pt.select(mag == 0, acc, pt.add(acc, sel, f))
-
-    sel0, mag0 = select_entry(t1, d1[0])
-    one = f.one(zero.shape[1:], zero.device)
-    acc = pt.Point(sel0.x, f.select(mag0 == 0, one, sel0.y), sel0.z)
-    acc = lookup_add(acc, t2, d2[0])
-    for w in range(1, d1.shape[0]):
-        for _ in range(4):
-            acc = pt.double(acc, f)
-        acc = lookup_add(acc, t1, d1[w])
-        acc = lookup_add(acc, t2, d2[w])
-    return acc.x, acc.y, acc.z
+    return [pt.Point(*table[e].unbind(0)) for e in range(table.shape[0])]
 
 
-def _base_accumulate_plain(digits, entry):
+def glv_windowed_mult_plain(d1, d2, t1, t2):
+    """k1*P1 + k2*P2 from nibble digits and prebuilt per-lane tables, the
+    function of the Pallas `_glv_mega_kernel`: t1, t2 int32 [15, 3, 16, B]
+    (entry e = (e + 1) * P); from the identity, 4 doublings and 2 masked
+    lookup-adds in every window, window 0 included.  Returns canonical
+    (x, y, z) planes."""
+    return _glv_plain(d1, d2, _lane_table_entries(t1),
+                      _lane_table_entries(t2), False, True)
+
+
+def _base_accumulate_plain(digits, entry, signed_digits: bool = True):
     """Sum over windows of the selected affine entries, the loop of the
-    Pallas `_base_windowed_add_kernel(signed_digits=True)`: window 0 is a
-    select (the whole identity where the magnitude is 0, even with the sign
-    bit set); later windows are mixed adds, passed through where the
-    magnitude is 0.  entry(w, mag) -> (x, y) planes of table[w][mag - 1]
-    (anything where mag is 0); y is negated here for a set sign bit."""
+    Pallas `_base_windowed_add_kernel`: window 0 is a select (the whole
+    identity where the magnitude is 0, even with the sign bit set); later
+    windows are mixed adds, passed through where the magnitude is 0.
+    entry(w, mag) -> (x, y) planes of table[w][mag - 1] (anything where mag
+    is 0).  Signed digits are magnitude (bits 0-15) | sign << 16, y negated
+    here for a set sign bit; unsigned digits are the magnitude."""
     from .. import field as fe
     from .. import point as pt
     f = fe.F_PLAIN
-    mag = digits & 0xFFFF
+    mag = digits & 0xFFFF if signed_digits else digits
     neg = (digits >> 16) == 1
 
     def signed_entry(w):
         x, y = entry(w, mag[w])
+        if not signed_digits:
+            return x, y
         return x, f.select(neg[w], f.neg(y), y)
 
     x0, y0 = signed_entry(0)
@@ -190,28 +276,23 @@ def _base_accumulate_plain(digits, entry):
     return acc
 
 
-def base_windowed_add_plain(digits, table):
+def base_windowed_add_plain(digits, table, signed_digits: bool = True):
     """k*G = sum over windows of table[w][|d_w| - 1], y negated for negative
     digits: the function of the Pallas `base_windowed_add`
-    (`_base_windowed_add_kernel(signed_digits=True, final_add=False)`).
+    (`_base_windowed_add_kernel(signed_digits, final_add=False)`).
 
-    digits: int32 [W, B], magnitude (bits 0-15) | sign << 16, least
-    significant window first (the digits of a secret scalar); table: int32
-    [W, E, 2, 16] affine multiples of G.  Each window's entry is a one-hot
-    masked sum over all E entries, never an index by the digit.  Returns
+    digits: int32 [W, B], least significant window first (the digits of a
+    secret scalar): magnitude (bits 0-15) | sign << 16 when signed_digits,
+    else in [0, E]; table: int32 [W, E, 2, 16] affine multiples of G.  Each
+    window's entry is a one-hot masked sum over all E entries
+    (`table.lookup_shared_affine`), never an index by the digit.  Returns
     canonical (x, y, z) planes."""
-    n_entries = table.shape[1]
-    ids = torch.arange(1, n_entries + 1, dtype=digits.dtype,
-                       device=digits.device).unsqueeze(1)
+    from .. import table as tbl
 
     def entry(w, mag):
-        hot = (ids == mag.unsqueeze(0)).to(table.dtype)        # [E, B]
-        tab = table[w].reshape(n_entries, 2 * lb.NLIMBS)        # [E, 32]
-        sel = (hot.unsqueeze(1) * tab.unsqueeze(2)).sum(0)      # [32, B]
-        sel = sel.to(lb.DTYPE)
-        return sel[:lb.NLIMBS], sel[lb.NLIMBS:]
+        return tbl.lookup_shared_affine(table[w], mag)
 
-    acc = _base_accumulate_plain(digits, entry)
+    acc = _base_accumulate_plain(digits, entry, signed_digits)
     return acc.x, acc.y, acc.z
 
 
@@ -250,6 +331,39 @@ def point_double_plain(x, y, z):
     from .. import field as fe
     from .. import point as pt
     return tuple(pt.double(pt.Point(x, y, z), fe.F_PLAIN))
+
+
+def point_double4_plain(x, y, z):
+    """16 (x, y, z): four chained doublings (RCB Algorithm 9) under
+    `fe.F_PLAIN`, as the Pallas `pdouble4` chains four
+    `_point_double_body`."""
+    from .. import field as fe
+    from .. import point as pt
+    p = pt.Point(x, y, z)
+    for _ in range(4):
+        p = pt.double(p, fe.F_PLAIN)
+    return tuple(p)
+
+
+def point_add_mixed_plain(x1, y1, z1, x2, y2):
+    """(x1, y1, z1) + (x2, y2, 1), RCB Algorithm 8 under `fe.F_PLAIN`, the
+    function of the Pallas `pmixed`.  The affine addend cannot be the
+    identity."""
+    from .. import field as fe
+    from .. import point as pt
+    return tuple(pt.add_mixed(pt.Point(x1, y1, z1), x2, y2, fe.F_PLAIN))
+
+
+def point_lookup_add_plain(x, y, z, table, digits):
+    """The Pallas `plookup_add`: per lane, table[d - 1] selected by a masked
+    sum over all 15 entries of the lane's table (int32 [15, 3, 16, B]),
+    completely added to (x, y, z); lanes with digit 0 keep (x, y, z)."""
+    from .. import field as fe
+    from .. import point as pt
+    from .. import table as tbl
+    acc = pt.Point(x, y, z)
+    added = pt.add(acc, tbl.lookup_lane_table(table, digits), fe.F_PLAIN)
+    return tuple(c.contiguous() for c in pt.select(digits == 0, acc, added))
 
 
 def msm_bucket_accumulate_all_plain(digits, px, py, pz, n_buckets: int,
@@ -371,25 +485,27 @@ def _check_table(name: str, table: torch.Tensor, w: int) -> None:
                          f"{tuple(table.shape)}")
 
 
-def base_windowed_add(digits, table):
+def base_windowed_add(digits, table, signed_digits: bool = True):
     """k*G from secret digits, one launch.  Replaces Pallas
-    `base_windowed_add` (kernels.py:1041); each window's entry is selected
-    by a masked scan over the whole table window in shared memory, so no
-    address or trip count depends on a digit."""
+    `base_windowed_add` (kernels.py:1041) in both digit modes; each window's
+    entry is selected by a masked scan over the whole table window, staged
+    in shared memory in chunks of 128 entries, so no address or trip count
+    depends on a digit.  Any entry count from 1 to 2^14."""
     name = "base_windowed_add"
     if _on_cpu(digits, table):
         PLAIN_CALLS[name] += 1
-        return base_windowed_add_plain(digits, table)
+        return base_windowed_add_plain(digits, table, signed_digits)
     w, lanes = digits.shape
     _check(name, digits, w, lanes)
     _check_table(name, table, w)
-    if table.shape[1] != 128:
-        raise ValueError(f"{name}: the kernel scans 128-entry windows, got "
-                         f"{table.shape[1]}")
+    n_entries = table.shape[1]
+    if not 1 <= n_entries <= 1 << 14:
+        raise ValueError(f"{name}: the kernel scans 1 to 2^14 entries a "
+                         f"window, got {n_entries}")
     outs = [torch.empty((16, lanes), dtype=torch.int32, device=digits.device)
             for _ in range(3)]
     _launch(name, "base", "base_windowed_add", [digits, table, *outs],
-            [lanes, w])
+            [lanes, w, n_entries, int(signed_digits)])
     return tuple(outs)
 
 
@@ -412,41 +528,39 @@ def base_windowed_add_final(digits, table, qx, qy, qz):
     return tuple(outs)
 
 
-def point_add(x1, y1, z1, x2, y2, z2):
-    """(x1, y1, z1) + (x2, y2, z2) lane by lane, one launch, any width B.
-    Replaces Pallas `point_add` (kernels.py:1376)."""
-    name = "point_add"
-    planes = (x1, y1, z1, x2, y2, z2)
-    on_cpu = _on_cpu(*planes)
-    lanes = x1.shape[1] if x1.dim() == 2 else -1
+def _lanewise(name: str, lib_name: str, plain, planes, extra=(),
+              check=None):
+    """The one-thread-a-lane point wrappers: `planes` int32 [16, B] and
+    `extra` operands (checked by `check(B)`) in, three [16, B] planes out,
+    one launch of `lib_name`'s `name` at any width B; CPU tensors take
+    `plain` instead."""
+    on_cpu = _on_cpu(*planes, *extra)
+    lanes = planes[0].shape[1] if planes[0].dim() == 2 else -1
     for t in planes:
         _check(name, t, 16, lanes)
-    outs = [torch.empty_like(x1) for _ in range(3)]
+    if check is not None:
+        check(lanes)
+    outs = [torch.empty_like(planes[0]) for _ in range(3)]
     if not lanes:               # an empty batch: nothing to compute
         return tuple(outs)
     if on_cpu:
         PLAIN_CALLS[name] += 1
-        return point_add_plain(*planes)
-    _launch(name, "point", "point_add", [*planes, *outs], [lanes])
+        return plain(*planes, *extra)
+    _launch(name, lib_name, name, [*planes, *extra, *outs], [lanes])
     return tuple(outs)
+
+
+def point_add(x1, y1, z1, x2, y2, z2):
+    """(x1, y1, z1) + (x2, y2, z2) lane by lane, one launch, any width B.
+    Replaces Pallas `point_add` (kernels.py:1376)."""
+    return _lanewise("point_add", "point", point_add_plain,
+                     (x1, y1, z1, x2, y2, z2))
 
 
 def point_double(x, y, z):
     """2 (x, y, z) lane by lane, one launch, any width B.  Replaces Pallas
     `point_double` (kernels.py:1380)."""
-    name = "point_double"
-    on_cpu = _on_cpu(x, y, z)
-    lanes = x.shape[1] if x.dim() == 2 else -1
-    for t in (x, y, z):
-        _check(name, t, 16, lanes)
-    outs = [torch.empty_like(x) for _ in range(3)]
-    if not lanes:
-        return tuple(outs)
-    if on_cpu:
-        PLAIN_CALLS[name] += 1
-        return point_double_plain(x, y, z)
-    _launch(name, "point", "point_double", [x, y, z, *outs], [lanes])
-    return tuple(outs)
+    return _lanewise("point_double", "point", point_double_plain, (x, y, z))
 
 
 def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
@@ -485,3 +599,84 @@ def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
             [digits, px, py, pz, out],
             [w, n, n_buckets, int(signed_digits), m_slots])
     return out
+
+
+def glv_windowed_mult_from_points(d1, d2, p1, p2):
+    """k1*P1 + k2*P2 from unsigned nibble digits [W, B], one launch; the
+    15-entry tables are built per lane in the kernel.  Replaces Pallas
+    `glv_windowed_mult_from_points` (kernels.py:1105)."""
+    name = "glv_windowed_mult_from_points"
+    planes = list(p1) + list(p2)
+    if _on_cpu(d1, d2, *planes):
+        PLAIN_CALLS[name] += 1
+        return glv_windowed_mult_from_points_plain(d1, d2, p1, p2)
+    w, lanes = d1.shape
+    _check(name, d1, w, lanes)
+    _check(name, d2, w, lanes)
+    for t in planes:
+        _check(name, t, 16, lanes)
+    outs = [torch.empty_like(planes[0]) for _ in range(3)]
+    _launch(name, "glv", "glv_windowed_mult_unsigned",
+            [d1, d2, *planes, *outs], [lanes, w])
+    return tuple(outs)
+
+
+def _check_lane_table(name: str, t: torch.Tensor, lanes: int) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != (15, 3, 16, lanes) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous int32 "
+                         f"[15, 3, 16, {lanes}] lane table, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def glv_windowed_mult(d1, d2, t1, t2):
+    """k1*P1 + k2*P2 from nibble digits [W, B] and two prebuilt lane tables
+    [15, 3, 16, B], one launch, from the identity.  Replaces Pallas
+    `glv_windowed_mult` (kernels.py:1266)."""
+    name = "glv_windowed_mult"
+    if _on_cpu(d1, d2, t1, t2):
+        PLAIN_CALLS[name] += 1
+        return glv_windowed_mult_plain(d1, d2, t1, t2)
+    w, lanes = d1.shape
+    _check(name, d1, w, lanes)
+    _check(name, d2, w, lanes)
+    _check_lane_table(name, t1, lanes)
+    _check_lane_table(name, t2, lanes)
+    outs = [torch.empty((16, lanes), dtype=torch.int32, device=d1.device)
+            for _ in range(3)]
+    _launch(name, "glv", "glv_windowed_mult_tables", [d1, d2, t1, t2, *outs],
+            [lanes, w])
+    return tuple(outs)
+
+
+def point_double4(x, y, z):
+    """16 (x, y, z) lane by lane, one launch, any width B.  Replaces Pallas
+    `point_double4` (kernels.py:1384)."""
+    return _lanewise("point_double4", "point", point_double4_plain,
+                     (x, y, z))
+
+
+def point_add_mixed(x1, y1, z1, x2, y2):
+    """(x1, y1, z1) + (x2, y2, 1) lane by lane, one launch, any width B.
+    Replaces Pallas `point_add_mixed` (kernels.py:1413)."""
+    return _lanewise("point_add_mixed", "point", point_add_mixed_plain,
+                     (x1, y1, z1, x2, y2))
+
+
+def point_lookup_add(x, y, z, table, digits):
+    """The GLV window body after the doublings, one launch: per lane the
+    masked select of table[d - 1] (every entry read), a complete add into
+    (x, y, z), digit 0 passed through.  table int32 [15, 3, 16, B], digits
+    int32 [B] in [0, 15].  Replaces Pallas `point_lookup_add`
+    (kernels.py:1388)."""
+    name = "point_lookup_add"
+
+    def check(lanes):
+        _check_lane_table(name, table, lanes)
+        if digits.dtype != torch.int32 or tuple(digits.shape) != (lanes,) \
+                or not digits.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous int32 [{lanes}] "
+                             f"digits, got {digits.dtype} "
+                             f"{tuple(digits.shape)}")
+    return _lanewise(name, "lookup", point_lookup_add_plain, (x, y, z),
+                     (table, digits), check)

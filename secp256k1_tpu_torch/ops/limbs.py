@@ -113,6 +113,9 @@ def pad_limbs(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
     return out
 
 
+CHAIN_BITS = 62          # windows a carry-chain word holds (a + g + 1 < 2^63)
+
+
 def _bit_mask(flags: torch.Tensor) -> torch.Tensor:
     """[W, *batch] 0/1 int64 -> [*batch] int64 with bit i = flags[i]."""
     w = flags.shape[0]
@@ -128,14 +131,20 @@ def carry_chain(gen: torch.Tensor, prop: torch.Tensor):
     """Carry-lookahead over the limb axis: gen/prop [W, *batch] 0/1 int64
     (never both set).  Returns (carry_in [W, *batch], carry_out [*batch]):
     carry_in[i] = gen[i-1] | (prop[i-1] & carry_in[i-1]).  Computed as the
-    carries of the binary sum (gen|prop) + gen, whose per-bit generate and
-    propagate are exactly gen and prop."""
+    carries of the binary sum (gen|prop) + gen + c, whose per-bit generate
+    and propagate are exactly gen and prop, over words of at most
+    CHAIN_BITS windows, each word's carry out the next one's carry in (the
+    signed 4-bit fixed-base windows need 64)."""
     w = gen.shape[0]
-    assert w <= 62
-    g = _bit_mask(gen)
-    a = g | _bit_mask(prop)
-    c = (a + g) ^ a ^ g
-    return _mask_bits(c, w), (c >> w) & 1
+    carries, c_in = [], 0
+    for lo in range(0, w, CHAIN_BITS):
+        k = min(CHAIN_BITS, w - lo)
+        g = _bit_mask(gen[lo:lo + k])
+        a = g | _bit_mask(prop[lo:lo + k])
+        s = a + g + c_in if lo else a + g
+        carries.append(_mask_bits(s ^ a ^ g, k))
+        c_in = (s >> k) & 1
+    return (carries[0] if len(carries) == 1 else torch.cat(carries, 0)), c_in
 
 
 # ---------------------------------------------------------------------------

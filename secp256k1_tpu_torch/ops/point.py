@@ -8,13 +8,13 @@ step for step in the order of the Pallas bodies `_point_add_body`,
 is what makes the projective X, Y, Z equal to the JAX package's, and not
 only the affine point.
 
-`add` and `double` without a ring go to the point kernel wrappers
-(`point_add`, `point_double`), as the JAX package's `_maybe_pallas` does:
-one launch each on CUDA, whatever the batch width; the composed formula
-under `fe.F_PLAIN` on the CPU.  Given a ring `f`, a formula composes its
-steps from that ring's ops: the plain versions of the kernels pass
-`fe.F_PLAIN`.  `add_mixed` keeps its composed formula (through the
-`mod_mul` kernel on CUDA).
+`add`, `add_mixed` and `double` without a ring go to the point kernel
+wrappers (`point_add`, `point_add_mixed`, `point_double`), and `double_n`
+of a multiple of 4 to `point_double4`, as the JAX package's
+`_maybe_pallas` does: one launch each on CUDA, whatever the batch width;
+the composed formula under `fe.F_PLAIN` on the CPU.  Given a ring `f`, a
+formula composes its steps from that ring's ops: the plain versions of the
+kernels pass `fe.F_PLAIN`.
 """
 
 from __future__ import annotations
@@ -89,10 +89,13 @@ def add(p: Point, q: Point, f=None) -> Point:
 
 
 def add_mixed(p: Point, qx, qy, f=None) -> Point:
-    """Mixed addition (Z2 = 1), RCB 2015 Algorithm 8, in the batched rounds
+    """Mixed addition (Z2 = 1), RCB 2015 Algorithm 8: one
+    `point_add_mixed` without a ring; given a ring, in the batched rounds
     of `add`.  The affine addend cannot be the identity; callers mask the
     digit-0 case."""
-    f = f or fe.F
+    if f is None:
+        return Point(*K.point_add_mixed(
+            *_planes(p), *(c.to(lb.DTYPE).contiguous() for c in (qx, qy))))
     x1, y1, z1 = p
     x2, y2 = qx, qy
     s1, s2 = f.many("add", (x2, y2), (x1, y1))
@@ -129,6 +132,18 @@ def double(p: Point, f=None) -> Point:
         "mul", (t2b, z3c), (t1, z3c), (t0b, y3), (t0b, xy))
     y3c, x3c = f.many("add", (x3, y3b), (x3b, x3b))
     return Point(x3c, y3c, z3d)
+
+
+def double_n(p: Point, n: int) -> Point:
+    """n consecutive doublings: n / 4 `point_double4` launches when n is a
+    multiple of 4, else n `point_double` launches (the JAX rule)."""
+    if n % 4 == 0:
+        for _ in range(n // 4):
+            p = Point(*K.point_double4(*_planes(p)))
+        return p
+    for _ in range(n):
+        p = double(p)
+    return p
 
 
 def negate(p: Point) -> Point:

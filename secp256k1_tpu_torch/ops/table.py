@@ -1,30 +1,129 @@
 """Fixed-base tables and fixed-base scalar multiplication (PyTorch).
 
-The port of the signed 8-bit path of `secp256k1_tpu.ops.table`: the signed
-G table (computed here from python ints and cached in memory, never written
-to the JAX package's data directory), the signed window recoding,
-`scalar_base_mult` (k*G, secret k) and `scalar_base_mult_add` (k*G + Q,
-public k), each one launch of a fixed-base kernel on CUDA.  The kernels
-select the table entries themselves, so the TPU's bf16 one-hot selection
-planes are not ported: verify's kernel gathers table[w][|d| - 1] (public
-digits), the secret-digit kernel scans every entry of a window.  The window
-is fixed at 8 bits.  Also the per-lane tables of Straus's MSM
-(`build_lane_table`, `lookup_lane_table`).
+The port of the fixed-base half of `secp256k1_tpu.ops.table`: the signed
+G tables of every width 4-15 and the unsigned ones of widths 4 and 8
+(computed here from python ints and cached in memory, never read from or
+written to the JAX package's data directory), the window digits of every
+width, `scalar_base_mult` (k*G, secret k) and `scalar_base_mult_add`
+(k*G + Q, public k), routed as the JAX package routes them on its TPU
+under its own switches:
+
+- `set_base_signed` / `SECP256K1_TPU_BASE_SIGNED` (on by default): signed
+  windows of `base_window()` bits, else unsigned 8-bit windows;
+- `set_base_window` / `SECP256K1_TPU_BASE_WINDOW` (8 by default, 4-15):
+  the signed width.
+
+Where the JAX package's fused kernels would fit their VMEM budget
+(`_fused_base_ok`: signed w >= 6, unsigned w = 8) one launch of a
+fixed-base kernel does the whole sum on CUDA: `base_windowed_add` (secret
+digits, a masked scan of every entry) or `base_windowed_add_final` (public
+digits, a gather, then + Q).  Elsewhere (signed w = 4, 5, unsigned w = 4)
+the scan path runs a window at a time: a masked select over the window's
+entries, a `point_add_mixed` launch, a select on digit 0.  The TPU's bf16
+one-hot selection planes are not ported.  Also the per-lane tables of
+Straus's MSM and the not-mega GLV (`build_lane_table`,
+`lookup_lane_table`).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
+from . import field as fe
 from . import limbs as lb
 from . import point as pt
 from .cuda import kernels as K
 from ..utils import hostcurve as hc
 
 BASE_WINDOW_BITS = 8
+
+_BASE_SIGNED = os.environ.get("SECP256K1_TPU_BASE_SIGNED", "1") != "0"
+_BASE_WINDOW = int(os.environ.get("SECP256K1_TPU_BASE_WINDOW", "8"))
+
+
+def base_signed_enabled() -> bool:
+    return _BASE_SIGNED
+
+
+def set_base_signed(value: bool) -> None:
+    global _BASE_SIGNED
+    _BASE_SIGNED = bool(value)
+
+
+def base_window() -> int:
+    return _BASE_WINDOW
+
+
+def set_base_window(value: int) -> None:
+    global _BASE_WINDOW
+    assert 4 <= value <= 15
+    _BASE_WINDOW = int(value)
+
+
+# ---------------------------------------------------------------------------
+# Host-side tables (python ints, cached).
+# ---------------------------------------------------------------------------
+
+def _batch_affine_add(pairs):
+    """[(P_i, Q_i)] -> [P_i + Q_i] for affine points with P_i != -Q_i and
+    neither the identity: one modular inversion for the whole list
+    (Montgomery's trick)."""
+    p = hc.P
+    dens = [(2 * a[1]) % p if a == b else (b[0] - a[0]) % p
+            for a, b in pairs]
+    prefix = [1]
+    for d in dens:
+        prefix.append(prefix[-1] * d % p)
+    inv = pow(prefix[-1], -1, p)
+    out = [None] * len(pairs)
+    for i in range(len(pairs) - 1, -1, -1):
+        d_inv = inv * prefix[i] % p
+        inv = inv * dens[i] % p
+        (x1, y1), (x2, y2) = pairs[i]
+        num = 3 * x1 * x1 if pairs[i][0] == pairs[i][1] else y2 - y1
+        lam = num * d_inv % p
+        x3 = (lam * lam - x1 - x2) % p
+        out[i] = (x3, (lam * (x1 - x3) - y1) % p)
+    return out
+
+
+def _multiples_np(n_windows: int, n_entries: int, window_bits: int):
+    """[n_windows, n_entries, 2, 16] int64 limbs with
+    table[w][d - 1] = d * 2^(window_bits * w) * G.  Every window's entries
+    grow by doubling their count: entries m+1..2m are entries 1..m plus
+    m*B, one batched affine add over all windows a round."""
+    bases = [hc.G]
+    for _ in range(n_windows - 1):
+        b = bases[-1]
+        for _ in range(window_bits):
+            b = hc.add(b, b)
+        bases.append(b)
+    rows = [[b] for b in bases]
+    while len(rows[0]) < n_entries:
+        m = len(rows[0])
+        k = min(m, n_entries - m)
+        pairs = [(r[i], r[m - 1]) for r in rows for i in range(k)]
+        sums = _batch_affine_add(pairs)
+        for w, r in enumerate(rows):
+            r.extend(sums[w * k:(w + 1) * k])
+    coords = b"".join(c.to_bytes(32, "little")
+                      for r in rows for point in r for c in point)
+    limbs = np.frombuffer(coords, dtype="<u2").astype(np.int64)
+    return limbs.reshape(n_windows, n_entries, 2, lb.NLIMBS)
+
+
+@functools.cache
+def gen_base_tables_np(window_bits: int = 4) -> np.ndarray:
+    """Unsigned-window affine multiples of G:
+    [256 / w, 2^w - 1, 2, 16] int64 limbs, table[w][d-1] =
+    d * 2^(window_bits*w) * G for d in 1..2^w - 1 (w in 4, 8)."""
+    assert window_bits in (4, 8)
+    return _multiples_np(256 // window_bits, (1 << window_bits) - 1,
+                         window_bits)
 
 
 @functools.cache
@@ -34,35 +133,31 @@ def gen_base_tables_signed_np(window_bits: int = BASE_WINDOW_BITS):
     table[w][d-1] = d * 2^(window_bits*w) * G for d in 1..2^(w-1).  The last
     window absorbs the recoding carry out of the top window."""
     assert 4 <= window_bits <= 15
-    n_windows = -(-256 // window_bits) + 1
-    n_entries = 1 << (window_bits - 1)
-    out = np.zeros((n_windows, n_entries, 2, lb.NLIMBS), dtype=np.int64)
-    base = hc.G
-    for w in range(n_windows):
-        acc = None
-        for d in range(1, n_entries + 1):
-            acc = hc.add(acc, base)
-            out[w, d - 1, 0] = lb.int_to_limbs(acc[0])
-            out[w, d - 1, 1] = lb.int_to_limbs(acc[1])
-        for _ in range(window_bits):
-            base = hc.add(base, base)
-    return out
+    return _multiples_np(-(-256 // window_bits) + 1, 1 << (window_bits - 1),
+                         window_bits)
 
 
 _TABLES: dict = {}
 
 
-def base_table(device) -> torch.Tensor:
-    """The signed G table (8-bit windows) as a contiguous int32 tensor on
-    `device`."""
-    key = str(torch.device(device))
+def base_table(device, window_bits: int = BASE_WINDOW_BITS,
+               signed: bool = True) -> torch.Tensor:
+    """The G table of `window_bits`-bit windows, signed or unsigned, as a
+    contiguous int32 tensor on `device` (cached per device, width and
+    signedness)."""
+    key = (str(torch.device(device)), window_bits, signed)
     t = _TABLES.get(key)
     if t is None:
-        t = torch.as_tensor(gen_base_tables_signed_np(BASE_WINDOW_BITS),
-                            dtype=lb.DTYPE, device=device).contiguous()
+        arr = (gen_base_tables_signed_np(window_bits) if signed
+               else gen_base_tables_np(window_bits))
+        t = torch.as_tensor(arr, dtype=lb.DTYPE, device=device).contiguous()
         _TABLES[key] = t
     return t
 
+
+# ---------------------------------------------------------------------------
+# Window digits.
+# ---------------------------------------------------------------------------
 
 def signed_recode(d: torch.Tensor, window_bits: int, sign_shift: int):
     """Unsigned window digits [W, *B] (least significant first, each in
@@ -99,35 +194,133 @@ def _raw_digits(k: torch.Tensor, window_bits: int, n_windows: int):
         :n_windows]
 
 
+def _raw_digits_any(k: torch.Tensor, window_bits: int, n_windows: int):
+    """Unsigned window digits for widths that need not divide the 16-bit
+    limb: window i spans bits [i*w, (i+1)*w), read from limb pairs
+    (bits past 256 are 0).  [n_windows, *B] in [0, 2^window_bits)."""
+    k = k.to(lb.WIDE)
+    pairs = k | (lb.pad_limbs(k[1:], 0, 1) << lb.LIMB_BITS)    # [16, *B]
+    bits = torch.arange(n_windows, device=k.device) * window_bits
+    shape = (n_windows,) + (1,) * (k.ndim - 1)
+    limb = (bits // lb.LIMB_BITS).reshape(shape)
+    shift = (bits % lb.LIMB_BITS).reshape(shape)
+    rows = pairs.index_select(0, limb.reshape(-1))
+    return (rows >> shift) & ((1 << window_bits) - 1)
+
+
+def _window_digits(k: torch.Tensor, window_bits: int, n_windows: int):
+    if lb.LIMB_BITS % window_bits == 0:
+        return _raw_digits(k, window_bits, n_windows)
+    return _raw_digits_any(k, window_bits, n_windows)
+
+
 def _signed_digits(k: torch.Tensor, window_bits: int = BASE_WINDOW_BITS):
     """Canonical scalar plane -> [n_windows + 1, *B] signed window digits,
     least significant first, magnitude (low 16 bits, in [0, 2^(w-1)]) |
-    sign << 16."""
-    assert lb.LIMB_BITS % window_bits == 0
+    sign << 16, for any width 4-15."""
     n_windows = -(-256 // window_bits)
-    return signed_recode(_raw_digits(k, window_bits, n_windows),
+    return signed_recode(_window_digits(k, window_bits, n_windows),
                          window_bits, 16)
 
 
-def scalar_base_mult(k: torch.Tensor) -> pt.Point:
-    """k*G for a secret scalar plane k: signed 8-bit fixed-base windows
-    (zero doublings, one mixed add per window, digit 0 passed through), in
-    one launch of the constant-time fixed-base kernel on CUDA, which
-    selects each window's entry by a masked scan of the whole window."""
-    x, y, z = K.base_windowed_add(_signed_digits(k).contiguous(),
-                                  base_table(k.device))
-    return pt.Point(x, y, z)
+# ---------------------------------------------------------------------------
+# Fixed-base scalar multiplication.
+# ---------------------------------------------------------------------------
+
+_VMEM_BLK_S = 8          # the JAX package's BLK_S sublanes a grid step
 
 
-def scalar_base_mult_add(k: torch.Tensor, q: pt.Point) -> pt.Point:
-    """k*G + Q: signed 8-bit fixed-base windows (zero doublings, one mixed
-    add per window, digit 0 passed through) and a final complete add of Q,
-    in one kernel launch on CUDA."""
-    digits = _signed_digits(k)
-    x, y, z = K.base_windowed_add_final(
-        digits.contiguous(), base_table(k.device),
-        q.x.contiguous(), q.y.contiguous(), q.z.contiguous())
-    return pt.Point(x, y, z)
+def _fused_base_ok(window_bits: int = BASE_WINDOW_BITS,
+                   signed: bool = False) -> bool:
+    """Whether one fixed-base kernel launch does the sum: the JAX
+    package's rule on its TPU (every window's selected x and y planes of a
+    grid step within 6 MiB of VMEM), taken on both devices here."""
+    n_windows = (-(-256 // window_bits) + 1) if signed \
+        else 256 // window_bits
+    return 2 * n_windows * lb.NLIMBS * _VMEM_BLK_S * 128 * 4 <= 6 * 2**20
+
+
+def lookup_shared_affine(table_w: torch.Tensor, mags: torch.Tensor):
+    """One window's lookup: table_w [E, 2, 16] affine entries, mags [*B] in
+    [0, E] (d selects entry d - 1; 0 gives (0, 0), which the caller masks).
+    A one-hot masked sum over every entry, never an index by the digit
+    (sign passes secret digits), in chunks of entries so that the one-hot
+    product stays near 512 MiB."""
+    n_entries = table_w.shape[0]
+    flat = table_w.reshape(n_entries, 2 * lb.NLIMBS).to(lb.DTYPE)
+    lanes = max(1, mags.numel())
+    chunk = max(1, (1 << 27) // (2 * lb.NLIMBS * lanes))
+    sel = torch.zeros((2 * lb.NLIMBS,) + tuple(mags.shape), dtype=lb.DTYPE,
+                      device=mags.device)
+    for lo in range(0, n_entries, chunk):
+        ids = torch.arange(lo + 1, min(lo + chunk, n_entries) + 1,
+                           dtype=mags.dtype, device=mags.device)
+        ids = ids.reshape((-1,) + (1,) * mags.ndim)
+        hot = (ids == mags.unsqueeze(0)).to(lb.DTYPE)           # [e, *B]
+        tab = flat[lo:lo + ids.shape[0]].reshape(
+            (ids.shape[0], 2 * lb.NLIMBS) + (1,) * mags.ndim)
+        sel += (hot.unsqueeze(1) * tab).sum(0, dtype=lb.DTYPE)
+    return sel[:lb.NLIMBS], sel[lb.NLIMBS:]
+
+
+def _scan_base_mult(table, digits, signed: bool) -> pt.Point:
+    """The JAX package's scan path: from the identity, per window a masked
+    select of the window's entry, y negated for a set sign bit, a mixed add
+    (`point_add_mixed`, one launch on CUDA) and a select on digit 0."""
+    mags = digits & 0xFFFF if signed else digits
+    acc = pt.identity(tuple(digits.shape[1:]), digits.device)
+    for w in range(digits.shape[0]):
+        qx, qy = lookup_shared_affine(table[w], mags[w])
+        if signed:
+            qy = fe.select((digits[w] >> 16) == 1, fe.neg(qy), qy)
+        acc = pt.select(mags[w] == 0, acc, pt.add_mixed(acc, qx, qy))
+    return acc
+
+
+def _scalar_base_mult_signed(k: torch.Tensor, window_bits: int) -> pt.Point:
+    """Signed-window k*G: ceil(256/w) + 1 windows of 2^(w-1) entries (a
+    magnitude lookup and a conditional y negation), zero doublings."""
+    digits = _signed_digits(k, window_bits).contiguous()
+    table = base_table(k.device, window_bits, signed=True)
+    if _fused_base_ok(window_bits, signed=True):
+        return pt.Point(*K.base_windowed_add(digits, table))
+    return _scan_base_mult(table, digits, signed=True)
+
+
+def scalar_base_mult(k: torch.Tensor,
+                     window_bits: int = BASE_WINDOW_BITS) -> pt.Point:
+    """k*G for a secret scalar plane k, zero doublings and one masked mixed
+    add per window.  window_bits 8 under the signed default takes the
+    signed windows of `base_window()` bits; otherwise unsigned windows of
+    window_bits (4 or 8) with 2^w - 1 entries.  On the fused path one
+    launch of the constant-time fixed-base kernel, which selects each
+    window's entry by a masked scan of the whole window; else the scan
+    path."""
+    if window_bits == 8 and _BASE_SIGNED:
+        return _scalar_base_mult_signed(k, _BASE_WINDOW)
+    table = base_table(k.device, window_bits, signed=False)
+    digits = _raw_digits(k, window_bits, table.shape[0]).to(
+        lb.DTYPE).contiguous()
+    if _fused_base_ok(window_bits):
+        return pt.Point(*K.base_windowed_add(digits, table,
+                                             signed_digits=False))
+    return _scan_base_mult(table, digits, signed=False)
+
+
+def scalar_base_mult_add(k: torch.Tensor, q: pt.Point,
+                         window_bits: int = BASE_WINDOW_BITS) -> pt.Point:
+    """k*G + Q.  Under the signed default with a fused width: one launch
+    of the fixed-base kernel with the final complete add of Q.  Otherwise
+    `add(scalar_base_mult(k, window_bits), Q)`, as the JAX package falls
+    back."""
+    if window_bits == 8 and _BASE_SIGNED \
+            and _fused_base_ok(_BASE_WINDOW, signed=True):
+        digits = _signed_digits(k, _BASE_WINDOW).contiguous()
+        x, y, z = K.base_windowed_add_final(
+            digits, base_table(k.device, _BASE_WINDOW, signed=True),
+            q.x.contiguous(), q.y.contiguous(), q.z.contiguous())
+        return pt.Point(x, y, z)
+    return pt.add(scalar_base_mult(k, window_bits), q)
 
 
 # ---------------------------------------------------------------------------

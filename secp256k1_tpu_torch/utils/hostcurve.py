@@ -27,9 +27,9 @@ def add(p1, p2):
     if x1 == x2:
         if (y1 + y2) % P == 0:
             return None
-        lam = (3 * x1 * x1) * pow(2 * y1, P - 2, P) % P
+        lam = (3 * x1 * x1) * pow(2 * y1, -1, P) % P
     else:
-        lam = (y2 - y1) * pow((x2 - x1) % P, P - 2, P) % P
+        lam = (y2 - y1) * pow((x2 - x1) % P, -1, P) % P
     x3 = (lam * lam - x1 - x2) % P
     y3 = (lam * (x1 - x3) - y1) % P
     return (x3, y3)

@@ -22,7 +22,7 @@ import torch
 
 import secp256k1_tpu_torch
 from secp256k1_tpu_torch import native
-from secp256k1_tpu_torch.models import ecdsa, keys, schnorr
+from secp256k1_tpu_torch.models import ecdh, ecdsa, keys, schnorr
 from secp256k1_tpu_torch.ops import field as fe
 from secp256k1_tpu_torch.ops.cuda import build
 from secp256k1_tpu_torch.ops.cuda import kernels as K
@@ -49,9 +49,9 @@ def _run(code, cwd=REPO):
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _modules()
     for m in ("models.ecdsa", "models.schnorr", "models.keys",
-              "models.rfc6979", "models.tuplehash", "native",
+              "models.rfc6979", "models.tuplehash", "models.ecdh", "native",
               "utils.config", "ops.cuda.kernels", "ops.msm", "ops.table",
-              "ops.point", "convert"):
+              "ops.point", "ops.glv", "convert"):
         assert f"secp256k1_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -98,6 +98,10 @@ def test_signing_entry_points_raise_without_a_gpu():
         lambda: schnorr.verify_batch_arrays(keys32, keys32,
                                             np.ones((1, 64), np.uint8)),
         lambda: schnorr.verify_batch([], [], []),
+        lambda: ecdh.ecdh_batch([priv], [priv.public_key]),
+        lambda: priv.ecdh(priv.public_key),
+        lambda: ecdh.ecdh_batch_arrays(keys32,
+                                       np.full((1, 33), 2, np.uint8)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -148,8 +152,39 @@ def test_msm_wrappers_take_the_plain_version_only_on_the_cpu():
     assert K.PLAIN_CALLS["point_add"] and K.PLAIN_CALLS["point_double"]
 
 
+def test_engine_wrappers_take_the_plain_version_only_on_the_cpu():
+    """The kernels behind the engine switches: plain on CPU tensors, a
+    raise on mixed devices, no launch counted for either."""
+    from secp256k1_tpu_torch.ops import point as pt
+    p = pt._planes(pt.identity((4,), "cpu"))
+    meta = torch.empty((16, 4), dtype=torch.int32, device="meta")
+    table = torch.zeros((15, 3, 16, 4), dtype=torch.int32)
+    digits = torch.zeros((4,), dtype=torch.int32)
+    nibbles = torch.zeros((2, 4), dtype=torch.int32)
+    K.reset_counts()
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.point_double4(meta, *p[1:])
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.point_add_mixed(*p, meta, p[0])
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.point_lookup_add(*p, table.to("meta"), digits)
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.glv_windowed_mult(nibbles, nibbles, table, table.to("meta"))
+    with pytest.raises(ValueError, match="all lie on the CPU"):
+        K.glv_windowed_mult_from_points(nibbles, nibbles, p, (meta,) * 3)
+    assert pt.is_identity(pt.Point(*K.point_double4(*p))).all()
+    assert pt.is_identity(pt.Point(*K.point_lookup_add(*p, table,
+                                                       digits))).all()
+    assert pt.is_identity(pt.Point(*K.glv_windowed_mult(
+        nibbles, nibbles, table, table))).all()
+    assert not any(K.LAUNCHES.values())
+    assert all(K.PLAIN_CALLS[k] == 1 for k in (
+        "point_double4", "point_lookup_add", "glv_windowed_mult"))
+
+
 def test_build_is_keyed_by_the_sources():
-    assert build.sources() == ["base", "glv", "modops", "msm", "point"]
+    assert build.sources() == ["base", "glv", "lookup", "modops", "msm",
+                               "point"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.build_dir().startswith(
