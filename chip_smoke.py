@@ -8,6 +8,7 @@ toolkit (nvcc) and g++:
 
     python3 chip_smoke.py            # the checks and timings below
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns
+    python3 chip_smoke.py --cores    # only the device cores' times
 
 It imports `secp256k1_tpu_torch` from the checkout (never JAX, never the
 JAX package) and runs, each phase printing its lines and any failure ending
@@ -26,9 +27,16 @@ the run with a non-zero exit code:
    unsigned GLV #7 and the lane-table GLV #9, whose affine result must
    equal #7's and #4's), and the fixed-base kernels at their other shapes
    (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); the
-   bucket kernel bit-exact over every partial bucket at 2^14 points in its
-   unsigned (w = 4) and signed (w = 5, 6) modes, and at 2^20 points (w = 4,
-   the MSM path's shape), where it is timed;
+   signed GLV #4 with edge lanes (all-zero digit windows, magnitude 0 with
+   the sign bit set, magnitude 8 of either sign, the identity as P1 or
+   P2); `mod_pow2k` also at the shapes the paths launch it (the square-root
+   chain at 65,536 lanes and the Fermat chain at the root of
+   `invert_batch`, one lane wide), each timed as the sum over its
+   launches; the bucket kernel bit-exact over every partial bucket at 2^14
+   points in its unsigned (w = 4) and signed (w = 5, 6) modes (every bucket
+   hit, magnitudes above the bucket count discarded), at a ragged N, with
+   3 slots, and at 2^20 points (w = 4, the MSM path's shape), where it is
+   timed;
 4. paths (65,536 lanes), each with the launch counts set to 0 just before
    it and read just after, failing if a kernel of that path was not
    launched or a plain version was called:
@@ -68,6 +76,7 @@ the run with a non-zero exit code:
    2^20-point `multi_scalar_mult` call (the last in a child process of
    this script, `--profile-msm`);
 6. a `kernels` JSON line (launches summed over the paths, and per path;
+   `mod_pow2k`'s launches by width and sum of k on each path;
    `glv_windowed_mult`, which no path of either package calls, with 0),
    then the `ok` JSON line last.
 """
@@ -176,6 +185,8 @@ MSM_CHECK_POINTS = 1 << 14       # bucket kernel vs plain; sort + scan call
 MSM_STRAUS_POINTS = 64
 MSM_RATE_SIZES = (1 << 16, 1 << 20, 1 << 22)
 PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
+POW2K_SHAPES: dict = {}         # path label -> {width: [launches, sum of k]}
+CORE_ROUNDS = 5                 # --cores: rounds of medians of 7 a core
 PROFILE_ATTEMPTS = 5
 # Host seconds of quiet at each end of a profiler session, so that no
 # device work starts or ends at a session's edge.  Late in a run the
@@ -314,9 +325,6 @@ def phase_build():
             f"registers, {rep.get('stack')} bytes stack, "
             f"{rep.get('spill_stores')} bytes spill stores, "
             f"{rep.get('spill_loads')} bytes spill loads")
-    threads = build.library("msm").msm_bucket_threads
-    say("build: k_msm_buckets threads a block (buckets in shared memory) "
-        + ", ".join(f"{threads(nb)} for {nb} buckets" for nb in (15, 16, 32)))
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +493,7 @@ def random_planes(rng, lanes, modulus, device):
     arr[15] = np.minimum(arr[15], 0xFFFE)
     m = modulus
     edge = [0, 1, 2, m - 1, m - 2, 2 ** 255 % m, (m >> 1) + 1]
+    edge = edge[:lanes]
     arr[:, :len(edge)] = lb.int_to_limbs_batch(edge)
     return torch.as_tensor(arr, dtype=torch.int32, device=device)
 
@@ -518,7 +527,6 @@ def kernel_checks(int_rate, curve, rng, device):
     from secp256k1_tpu_torch.ops import field as fe
     from secp256k1_tpu_torch.ops import glv
     from secp256k1_tpu_torch.ops import limbs as lb
-    from secp256k1_tpu_torch.ops import modring
     from secp256k1_tpu_torch.ops import point as pt
     from secp256k1_tpu_torch.ops import scalar as sc
     from secp256k1_tpu_torch.ops import table as tbl
@@ -534,19 +542,8 @@ def kernel_checks(int_rate, curve, rng, device):
                     plain_reps, products_total, bytes_total)
 
     # Field kernels, p and n.  The JSON keeps the first (mod p) time.
-    chain_ks = []
-
-    class _Chain:                       # records the pow2k steps of a chain
-        def mul(self, a, b):
-            return a
-
-        def pow2k(self, x, k):
-            chain_ks.append(k)
-            return x
-
-    for e in (fe.P - 2, sc.N - 2, (fe.P - 3) // 4):
-        modring.ModRing.pow_const_chain(_Chain(), None, e)
-    k_long = max(chain_ks)
+    k_long = max(max(chain_pow2k(e))
+                 for e in (fe.P - 2, sc.N - 2, (fe.P - 3) // 4))
 
     for modulus, tag, mul_c, sqr_c in ((fe.P, "p", MUL_P, SQR_P),
                                        (sc.N, "n", MUL_N, SQR_N)):
@@ -574,6 +571,44 @@ def kernel_checks(int_rate, curve, rng, device):
                    k * sqr_c * lanes, 2 * lane_bytes * lanes,
                    f"mod_pow2k k={k} mod {tag}")
 
+    # mod_pow2k at the shapes the paths launch it: the square-root chain
+    # ((p - 3)/4, field.sqrt_ratio: key decompression) at LANES lanes and
+    # the Fermat chain (n - 2) at the root of invert_batch's product tree,
+    # one lane wide; each the sum over its launches at their own k.
+    chains = {}
+    for label, e, modulus, width, sqr_c in (
+            ("sqrt (p-3)/4", (fe.P - 3) // 4, fe.P, lanes, SQR_P),
+            ("invert_batch root n-2", sc.N - 2, sc.N, 1, SQR_N)):
+        ks = [k for k in chain_pow2k(e) if k >= 2]  # k = 1 is a mod_square
+        x = random_planes(rng, width, modulus, device)
+
+        def chain(ks=ks, x=x, modulus=modulus):
+            for k in ks:
+                x = K.mod_pow2k(x, k, modulus)
+            return x
+
+        def plain_chain(ks=ks, x=x, modulus=modulus):
+            for k in ks:
+                x = K.mod_pow2k_plain(x, k, modulus)
+            return x
+        err = max_abs_err([chain()], [plain_chain()])
+        if err:
+            fail(f"mod_pow2k {label}: kernel differs from its plain version")
+        per, seen = kernel_device_ms(chain, 5, KERNEL_SYMBOL["mod_pow2k"])
+        total = per * len(ks)
+        bound = sum(bound_ms(int_rate, k * sqr_c * width,
+                             2 * lane_bytes * width)[0] for k in ks)
+        plain_ms = cuda_ms(plain_chain, 1, warmup=0)
+        chains[label] = {"width": width, "launches": len(ks),
+                         "sum_k": sum(ks), "ms": total, "bound_ms": bound,
+                         "plain_ms": plain_ms}
+        say(f"kernel mod_pow2k {label}: {len(ks)} launches at {width} "
+            f"lanes, sum of k {sum(ks)} (k = {ks}): bit-exact, {total:.4f} "
+            f"ms device in all (mean {per:.4f} ms a launch over {seen} "
+            f"launches, cold L2 before each chain), bound {bound:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+    res["mod_pow2k"]["chains"] = chains
+
     # GLV kernel at the operands verify gives it: u2 * Q with Q affine
     # (Z = 1), from tiled host points and random scalars.
     n_pts = 64
@@ -581,6 +616,23 @@ def kernel_checks(int_rate, curve, rng, device):
     q = pt.Point(qx, qy, fe.one((lanes,), device))
     u2 = random_planes(rng, lanes, sc.N, device)
     d1, d2, p1, p2 = glv.glv_kernel_operands(u2, q)
+    d1, d2 = d1.clone(), d2.clone()
+    p1, p2 = [c.clone() for c in p1], [c.clone() for c in p2]
+    # Edge lanes past the 24 held against python ints: 24 every window of
+    # d1 zero, 25 of d2; 26 magnitude 0 with the sign bit set in every
+    # window of d1 and in window 0 of d2; 27 magnitude +8 and 28 -8 in
+    # every window of both; 29 P1 the identity (0, 1, 0), 30 P2.
+    d1[:, 24] = 0
+    d2[:, 25] = 0
+    d1[:, 26] = 16
+    d2[0, 26] = 16
+    d1[:, 27] = d2[:, 27] = 8
+    d1[:, 28] = d2[:, 28] = 8 | 16
+    for pp, lane in ((p1, 29), (p2, 30)):
+        pp[0][:, lane] = 0
+        pp[1][:, lane] = torch.as_tensor(lb.int_to_limbs_batch([1])[:, 0],
+                                         dtype=torch.int32, device=device)
+        pp[2][:, lane] = 0
     name = "glv_windowed_mult_signed_from_points"
     got = K.glv_windowed_mult_signed_from_points(d1, d2, p1, p2)
     want = K.glv_windowed_mult_signed_from_points_plain(d1, d2, p1, p2)
@@ -674,6 +726,23 @@ def kernel_checks(int_rate, curve, rng, device):
     say(f"pow2k: the longest run of squarings in the inversion and square "
         f"root chains is k={k_long}")
     return res
+
+
+def chain_pow2k(e: int) -> list:
+    """The k of each pow2k step of ModRing.pow_const_chain(x, e), in order
+    (k >= 2 is a mod_pow2k launch, k = 1 a mod_square)."""
+    from secp256k1_tpu_torch.ops import modring
+    ks = []
+
+    class _Chain:
+        def mul(self, a, b):
+            return a
+
+        def pow2k(self, x, k):
+            ks.append(k)
+            return x
+    modring.ModRing.pow_const_chain(_Chain(), None, e)
+    return ks
 
 
 def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
@@ -939,35 +1008,61 @@ class MsmPoints:
 
 def msm_kernel_checks(int_rate, data, rng, device, res):
     """The bucket kernel against its plain version over every partial
-    bucket at MSM_CHECK_POINTS points (random Z), unsigned w = 4 and signed
-    w = 5 and 6; then at MSM_POINTS (w = 4, the MSM path's digits [64, N])
-    its device time, the plain version's time (one call), the two results
-    against each other and the bound."""
+    bucket: at MSM_CHECK_POINTS points (random Z) for unsigned w = 4 and
+    signed w = 5 and 6, the first nb + 1 points of each window taking the
+    digits 0 to nb (every bucket) and the next 64 magnitudes above nb (the
+    kernel must discard them), some far above for w = 4; at a ragged N
+    (MSM_CHECK_POINTS + 77, signed w = 5); with 3 slots (w = 4).  Then at
+    MSM_POINTS (w = 4, the MSM path's digits [64, N]) its device time, the
+    plain version's (one call), the two results against each other and the
+    bound."""
     from secp256k1_tpu_torch.ops import msm
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     name = "msm_bucket_accumulate_all"
     m = msm.MSM_SLOTS
     err = 0
-    for w in (4, 5, 6):
-        k, p, _ = data.batch(MSM_CHECK_POINTS, rng)
+
+    def edge_digits(digits, nb, signed):
+        nw = digits.shape[0]
+        sign = torch.as_tensor(rng.integers(0, 2, (nw, 64 + nb + 1)) << 6,
+                               dtype=torch.int32, device=device)
+        digits[:, :nb + 1] = torch.arange(nb + 1, device=device)
+        over = torch.as_tensor(rng.integers(nb + 1, 64, (nw, 64)),
+                               dtype=torch.int32, device=device)
+        digits[:, nb + 1:nb + 65] = over
+        if signed:
+            digits[:, :nb + 65] |= sign
+        else:
+            digits[:, nb + 65:nb + 69] = torch.as_tensor(
+                [64, 65, 1 << 20, 2**31 - 1], dtype=torch.int32,
+                device=device)
+        return digits.contiguous()
+
+    cases = [(4, MSM_CHECK_POINTS, m), (5, MSM_CHECK_POINTS, m),
+             (6, MSM_CHECK_POINTS, m), (5, MSM_CHECK_POINTS + 77, m),
+             (4, 600, 3)]
+    for w, n, slots in cases:
+        k, p, _ = data.batch(n, rng)
         p = random_z(p.x, p.y, rng, device)
         signed = w > 4
         nb = (1 << (w - 1)) if signed else (1 << w) - 1
-        digits = (msm._signed_digits(k, w) if signed
-                  else msm._digits(k, w)).contiguous()
-        got = K.msm_bucket_accumulate_all(digits, *p, nb, signed, m)
+        digits = edge_digits((msm._signed_digits(k, w) if signed
+                              else msm._digits(k, w)).contiguous(), nb,
+                             signed)
+        got = K.msm_bucket_accumulate_all(digits, *p, nb, signed, slots)
         plain = []
         plain_ms = cuda_ms(lambda: plain.append(
-            K.msm_bucket_accumulate_all_plain(digits, *p, nb, signed, m)),
-            1, warmup=0)
+            K.msm_bucket_accumulate_all_plain(digits, *p, nb, signed,
+                                              slots)), 1, warmup=0)
         err = max(err, max_abs_err([got], plain))
         if err:
-            fail(f"msm buckets w={w}: kernel differs from its plain version,"
-                 f" max abs err {err}")
+            fail(f"msm buckets w={w} at {n} points, {slots} slots: kernel "
+                 f"differs from its plain version, max abs err {err}")
         say(f"kernel msm buckets w={w} ({'signed' if signed else 'unsigned'}"
-            f", {nb} buckets, {digits.shape[0]} windows): bit-exact over all "
-            f"{got.shape[0] * nb * m} partial buckets at {MSM_CHECK_POINTS} "
-            f"points; plain {plain_ms:.1f} ms")
+            f", {nb} buckets, {digits.shape[0]} windows, {slots} slots): "
+            f"bit-exact over all {got.shape[0] * nb * slots} partial buckets"
+            f" at {n} points, every bucket hit, 64 magnitudes above {nb} a "
+            f"window discarded; plain {plain_ms:.1f} ms")
     k, p, _ = data.batch(MSM_POINTS, rng)
     digits = msm._digits(k, 4).contiguous()
     n, nw, nb = MSM_POINTS, digits.shape[0], 15
@@ -1100,9 +1195,16 @@ def run_path(label, kernels, fn, replay=()):
     if any(plain.values()):
         fail(f"path {label}: plain versions called: {plain}")
     PATH_LAUNCHES[label] = launches
+    shapes = {}                         # mod_pow2k: width -> [launches, sum k]
+    for (width, k), count in sorted(K.POW2K_SHAPES.items()):
+        rec = shapes.setdefault(width, [0, 0])
+        rec[0] += count
+        rec[1] += count * k
+    POW2K_SHAPES[label] = shapes
     say(f"path {label}: launches "
         f"{ {k: v for k, v in launches.items() if v} }; plain-version "
-        f"calls 0")
+        f"calls 0; mod_pow2k by width {{width: [launches, sum of k]}} "
+        f"{shapes}")
     replay_plain(label, calls)
     return out
 
@@ -1459,14 +1561,10 @@ def engine_throughput(batch, triples, sign_planes, device):
     fixed-base switch (CUDA events, median of 7).  Returns the ECDH core's
     byte planes."""
     from secp256k1_tpu_torch.models import ecdh, ecdsa
-    from secp256k1_tpu_torch.utils import batching as bt
 
     def rate(ms):
         return LANES / ms * 1e3
-    want_odd = bt.scalar_plane(batch.pubs[:, 0] == 0x03, LANES, fill=False,
-                               dtype=torch.bool, device=device)
-    planes = (bt.byte_plane_np(batch.priv, LANES, device), want_odd,
-              bt.byte_plane_np(batch.pubs[:, 1:], LANES, device))
+    planes = ecdh_core_planes(batch, device)
     for tag, flags, _ in ECDH_ENGINES:
         with switches(**flags):
             e2e = wall_ms(lambda: ecdh.ecdh_batch_arrays(batch.priv,
@@ -1487,6 +1585,40 @@ def engine_throughput(batch, triples, sign_planes, device):
             f"verify/s; _sign_e2e_core {sig[0]:.3f} ms (range {sig[1]:.3f}-"
             f"{sig[2]:.3f}) = {rate(sig[0]):.1f} sign/s")
     return planes
+
+
+def ecdh_core_planes(batch, device):
+    """(k bytes, want_odd, peer x bytes) planes of _ecdh_e2e_core."""
+    from secp256k1_tpu_torch.utils import batching as bt
+    want_odd = bt.scalar_plane(batch.pubs[:, 0] == 0x03, LANES, fill=False,
+                               dtype=torch.bool, device=device)
+    return (bt.byte_plane_np(batch.priv, LANES, device), want_odd,
+            bt.byte_plane_np(batch.pubs[:, 1:], LANES, device))
+
+
+def sign_core_planes(signers, device):
+    """(nonce, digest, key) byte planes of _sign_e2e_core: the RFC 6979
+    nonces of the signers' keys and digests."""
+    from secp256k1_tpu_torch import native
+    from secp256k1_tpu_torch.models import ecdsa
+    from secp256k1_tpu_torch.utils import batching as bt
+    e_arr = ecdsa._reduce_digest_np(signers.digests)
+    k_arr = native.rfc6979_nonce_batch(signers.priv, e_arr)[0]
+    return [bt.byte_plane_np(a, LANES, device)
+            for a in (k_arr, e_arr, signers.priv)]
+
+
+def recover_core_args(sigs, recid, digests, device):
+    """(r bytes, recovery ids, e, r, s) of _recover_core."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import scalar as sc
+    from secp256k1_tpu_torch.utils import batching as bt
+    r_bytes = bt.byte_plane_np(sigs[:, :32], LANES, device)
+    e, _ = sc.S.from_bytes_any(bt.byte_plane_np(digests, LANES, device))
+    r = sc.S._bytes_to_limbs(r_bytes).to(lb.DTYPE)
+    s = sc.S._bytes_to_limbs(bt.byte_plane_np(sigs[:, 32:], LANES,
+                                              device)).to(lb.DTYPE)
+    return r_bytes, torch.as_tensor(recid, device=device), e, r, s
 
 
 def core_planes(triples, lanes, device):
@@ -1572,9 +1704,6 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
     sign core's byte planes."""
     from secp256k1_tpu_torch import native
     from secp256k1_tpu_torch.models import ecdsa, schnorr
-    from secp256k1_tpu_torch.ops import limbs as lb
-    from secp256k1_tpu_torch.ops import scalar as sc
-    from secp256k1_tpu_torch.utils import batching as bt
     sigs, recid, ders, lens, cache = ecdsa_out
     priv, digests = signers.priv, signers.digests
 
@@ -1584,9 +1713,7 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
     e_arr = ecdsa._reduce_digest_np(digests)
     drbg = wall_ms(lambda: native.rfc6979_nonce_batch(priv, e_arr), 3)
     sign = wall_ms(lambda: ecdsa.sign_batch_arrays(priv, digests), 3)
-    k_arr = native.rfc6979_nonce_batch(priv, e_arr)[0]
-    planes = [bt.byte_plane_np(a, LANES, device)
-              for a in (k_arr, e_arr, priv)]
+    planes = sign_core_planes(signers, device)
     core = median_cuda_ms(lambda: ecdsa._sign_e2e_core(*planes))
     say(f"throughput: ECDSA sign_batch_arrays end to end {sign[0]:.1f} ms "
         f"(median of 3, range {sign[1]:.1f}-{sign[2]:.1f}) at {LANES} "
@@ -1595,14 +1722,8 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
         f"{core[0]:.3f} ms (median of 7, range {core[1]:.3f}-{core[2]:.3f})"
         f" = {rate(core[0]):.1f} sign/s")
 
-    r_bytes = bt.byte_plane_np(sigs[:, :32], LANES, device)
-    recids = torch.as_tensor(recid, device=device)
-    e, _ = sc.S.from_bytes_any(bt.byte_plane_np(digests, LANES, device))
-    r = sc.S._bytes_to_limbs(r_bytes).to(lb.DTYPE)
-    s = sc.S._bytes_to_limbs(bt.byte_plane_np(sigs[:, 32:], LANES,
-                                              device)).to(lb.DTYPE)
-    rec_core = median_cuda_ms(lambda: ecdsa._recover_core(r_bytes, recids,
-                                                          e, r, s))
+    rec_args = recover_core_args(sigs, recid, digests, device)
+    rec_core = median_cuda_ms(lambda: ecdsa._recover_core(*rec_args))
     triples = [(int.from_bytes(sigs[i, :32].tobytes(), "big"),
                 int.from_bytes(sigs[i, 32:].tobytes(), "big"), int(recid[i]))
                for i in range(LANES)]
@@ -1745,9 +1866,50 @@ def profile_msm():
                  [KERNEL_SYMBOL[name] for name in MSM_KERNELS])
 
 
+def cores_only():
+    """`--cores`: the device cores of phase 5 alone (`_verify_impl`,
+    `_sign_e2e_core`, `_recover_core`, `_ecdh_e2e_core` under each GLV
+    engine), each the median of 7 single calls by CUDA events, in
+    CORE_ROUNDS rounds; no checks past the signatures' statuses and no
+    `ok` line.  For an A/B of two checkouts in one call: copy this script
+    into each and run them in turn (parent, change, change, parent)."""
+    phase_device()
+    import_port()
+    phase_build()
+    from secp256k1_tpu_torch.models import ecdh, ecdsa
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    curve = HostCurve()
+    triples = make_triples(curve, rng)
+    signers = Signers(curve, rng)
+    sigs, recid, status = ecdsa.sign_batch_arrays(signers.priv,
+                                                  signers.digests)
+    check_statuses("ECDSA sign", status, np.zeros_like(status))
+    cores = [("_verify_impl", ecdsa._verify_impl,
+              core_planes(triples, LANES, device), {}),
+             ("_sign_e2e_core", ecdsa._sign_e2e_core,
+              sign_core_planes(signers, device), {}),
+             ("_recover_core", ecdsa._recover_core,
+              recover_core_args(sigs, recid, signers.digests, device), {})]
+    planes = ecdh_core_planes(EcdhBatch(curve, signers, rng), device)
+    cores += [(f"_ecdh_e2e_core ({tag})", ecdh._ecdh_e2e_core, planes, flags)
+              for tag, flags, _ in ECDH_ENGINES]
+    times = {label: [] for label, *_ in cores}
+    for _ in range(CORE_ROUNDS):
+        for label, fn, args, flags in cores:
+            with switches(**flags):
+                times[label].append(median_cuda_ms(lambda: fn(*args))[0])
+    for label, t in times.items():
+        say(f"cores: {label} {sorted(t)[len(t) // 2]:.3f} ms at {LANES} "
+            f"lanes (median of {len(t)} rounds, each the median of 7 calls:"
+            f" {', '.join(f'{x:.3f}' for x in t)})")
+
+
 def main():
     if "--profile-msm" in sys.argv[1:]:
         return profile_msm()
+    if "--cores" in sys.argv[1:]:
+        return cores_only()
     t_start = time.perf_counter()
     marks = [t_start]
 
@@ -1824,10 +1986,12 @@ def main():
                     if counts[name]}
         if not per_path and name not in NO_PATH_KERNELS:
             fail(f"{name} was launched on no path")
+        shapes = {"pow2k_widths_per_path": POW2K_SHAPES} \
+            if name == "mod_pow2k" else {}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(per_path.values()),
-                        "launches_per_path": per_path,
+                        "launches_per_path": per_path, **shapes,
                         **res[name], "library_ms": None})
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -1,33 +1,111 @@
-// Field core of the verify-path kernels: arithmetic mod p and mod n on
-// 8 x 32-bit little-endian words held in registers.
+// Field core of the kernels: arithmetic mod p and mod n on 8 x 32-bit
+// little-endian words held in registers.
 //
 // Replaces the in-kernel field arithmetic of the Pallas kernels
 // (secp256k1_tpu/ops/pallas/kernels.py: _mul_rows :76, _sqr_rows :102,
 // _reduce_wide :265, _add_rows/_sub_rows :357-377), which works on 16-bit
 // limbs in u32 because the TPU has no add-with-carry and no 64-bit integers.
-// Hopper has both, so a product here is an 8 x 8 schoolbook of 32 x 32 -> 64
-// bit multiply-adds (64 of them) instead of 256 16 x 16 products.
+// Hopper has both, so a product here is an 8 x 8 schoolbook of 32 x 32-bit
+// multiply-adds (64 of them) instead of 256 16 x 16 products.
+//
+// Carry chains: every multi-word sum, difference and product row is one
+// chain of PTX add/sub/mad instructions with carry in and out (add.cc,
+// addc.cc, mad.lo.cc, madc.hi.cc, ...), with no separate carry arithmetic;
+// ptxas turns each (mad.lo, madc.hi) pair into one wide multiply-add with
+// the carry in a predicate, and overlaps independent chains.  A row of the
+// schoolbook is split by the parity of the word a product's (lo, hi) pair
+// lands on into two chains whose pairs tile their words without overlap
+// (even and odd accumulators, added once at the end), so no chain adds two
+// values into one word and no register pair shifts between rows.
+// Without nvcc (a plain C++ compiler) the same primitives are emulated with
+// a carry variable, so the arithmetic can be checked on the host against
+// python ints.
 //
 // Both moduli are m = 2^256 - c.  A 512-bit product folds with
-// 2^256 = c (mod m): for p, c = 2^32 + 977 (two words, one of them 1); for
-// n, c is 129 bits (five words, the top one 1), so the fold takes more
-// rounds, as _reduce_wide does with a multi-limb c.  Every function returns a
-// canonical value (< m) from canonical inputs; fe_mul and fe_sqr accept any
-// inputs < 2^256.
+// 2^256 = c (mod m): for p, c = 2^32 + 977, folded by a specialized
+// carry-chain reduction; for n, c is 129 bits (five words, the top one 1),
+// so the fold takes more rounds, as _reduce_wide does with a multi-limb c.
+// Every function returns a canonical value (< m) from canonical inputs;
+// fe_mul and fe_sqr accept any inputs < 2^256.
 //
 // Memory layout at the kernel boundary: int32 planes [16, B] of 16-bit limbs,
 // limb-major, so a warp's 32 threads (32 lanes) read 128 contiguous bytes per
 // limb.  load_fe / store_fe pack two limbs into one word.
 //
 // Bound: 32-bit integer multiply-adds.  A field multiply is 64 wide products
-// plus ~10 for the p fold (~60 for n); nothing here touches memory between
+// plus ~12 for the p fold (~60 for n); nothing here touches memory between
 // the load and the store.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
+
+#ifndef __CUDACC__
+#define __device__
+#define __forceinline__ inline
+#endif
 
 typedef uint32_t u32;
 typedef uint64_t u64;
+
+// ---------------------------------------------------------------------------
+// Carry-chain primitives.  The carry flag links consecutive calls: a chain
+// starts with a *_cc form without carry in and ends with a form without
+// carry out (or is read by addc(0, 0) / subc(0, 0)).
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+
+#define FIELD_ASM2(name, op)                                               \
+  __device__ __forceinline__ u32 name(u32 a, u32 b) {                      \
+    u32 r;                                                                 \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));            \
+    return r;                                                              \
+  }
+#define FIELD_ASM3(name, op)                                               \
+  __device__ __forceinline__ u32 name(u32 a, u32 b, u32 c) {               \
+    u32 r;                                                                 \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+    return r;                                                              \
+  }
+FIELD_ASM2(add_cc, "add.cc.u32")
+FIELD_ASM2(addc_cc, "addc.cc.u32")
+FIELD_ASM2(addc, "addc.u32")
+FIELD_ASM2(sub_cc, "sub.cc.u32")
+FIELD_ASM2(subc_cc, "subc.cc.u32")
+FIELD_ASM2(subc, "subc.u32")
+FIELD_ASM3(madlo_cc, "mad.lo.cc.u32")
+FIELD_ASM3(madloc_cc, "madc.lo.cc.u32")
+FIELD_ASM3(madhic_cc, "madc.hi.cc.u32")
+#undef FIELD_ASM2
+#undef FIELD_ASM3
+
+__device__ __forceinline__ u32 mulhi(u32 a, u32 b) { return __umulhi(a, b); }
+
+#else  // host emulation: cc_flag stands for the carry flag (borrow in subs)
+
+static thread_local u32 cc_flag;
+
+inline u32 cc_out(u64 s) {
+  cc_flag = (u32)(s >> 32) & 1u;
+  return (u32)s;
+}
+inline u32 add_cc(u32 a, u32 b) { return cc_out((u64)a + b); }
+inline u32 addc_cc(u32 a, u32 b) { return cc_out((u64)a + b + cc_flag); }
+inline u32 addc(u32 a, u32 b) { return a + b + cc_flag; }
+inline u32 sub_cc(u32 a, u32 b) { return cc_out((u64)a - b); }
+inline u32 subc_cc(u32 a, u32 b) { return cc_out((u64)a - b - cc_flag); }
+inline u32 subc(u32 a, u32 b) { return a - b - cc_flag; }
+inline u32 madlo_cc(u32 a, u32 b, u32 c) { return cc_out((u64)(a * b) + c); }
+inline u32 madloc_cc(u32 a, u32 b, u32 c) {
+  return cc_out((u64)(a * b) + c + cc_flag);
+}
+inline u32 mulhi(u32 a, u32 b) { return (u32)(((u64)a * b) >> 32); }
+inline u32 madhic_cc(u32 a, u32 b, u32 c) {
+  return cc_out((u64)mulhi(a, b) + c + cc_flag);
+}
+
+#endif
 
 // ---------------------------------------------------------------------------
 // Moduli.  c(j): the words of c = 2^256 - m; m(j): the words of m.
@@ -104,58 +182,90 @@ __device__ __forceinline__ void fe_cmov(u32 d[8], const u32 a[8], u32 mask) {
 // Wide products.
 // ---------------------------------------------------------------------------
 
-// r = a * b (512 bits).  Row i adds a[i] * b into r[i..i+8]; each step is
-// (2^32-1)^2 + 2 (2^32-1) < 2^64, so a u64 holds product, word and carry.
-__device__ __forceinline__ void mul_wide(const u32 a[8], const u32 b[8],
-                                         u32 r[16]) {
+// acc += (lo, hi) of a[J0] * b, a[J0 + 2] * b, ... up to a[7] (pairs that
+// tile consecutive words from acc[0]), the carry out added into the word
+// after the last pair (which holds at most one earlier carry).
+template <int J0>
+__device__ __forceinline__ void mad_pairs(const u32 a[8], u32 b, u32* acc) {
+  acc[0] = madlo_cc(a[J0], b, acc[0]);
+  acc[1] = madhic_cc(a[J0], b, acc[1]);
 #pragma unroll
-  for (int k = 0; k < 16; ++k) r[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      c += (u64)a[i] * b[j] + r[i + j];
-      r[i + j] = (u32)c;
-      c >>= 32;
-    }
-    r[i + 8] = (u32)c;
+  for (int j = J0 + 2; j < 8; j += 2) {
+    acc[j - J0] = madloc_cc(a[j], b, acc[j - J0]);
+    acc[j - J0 + 1] = madhic_cc(a[j], b, acc[j - J0 + 1]);
   }
+  constexpr int END = 2 * ((8 - J0 + 1) / 2);
+  acc[END] = addc(acc[END], 0u);
 }
 
-// r = a^2: the 28 off-diagonal products once, doubled by a one-bit shift,
-// plus the 8 squares.
+// r = a * b (512 bits).  Row i adds the pair (lo, hi) of a[j] * b[i] at
+// word i + j: the pairs with i + j even into ev (ev[k] is word k), the
+// others into od (od[k] is word k + 1), each as one carry chain.  So every
+// pair lands on the same even-aligned word pair of its accumulator in
+// every row, as the register pairs of a wide multiply-add want (no moves
+// between rows).
+__device__ __forceinline__ void mul_wide(const u32 a[8], const u32 b[8],
+                                         u32 r[16]) {
+  u32 ev[17], od[16];
+#pragma unroll
+  for (int k = 0; k < 17; ++k) ev[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) od[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    mad_pairs<0>(a, b[i], ev + i);          // j even: words i, i+2, ..
+    mad_pairs<1>(a, b[i], od + i);          // j odd: words i+1, i+3, ..
+    mad_pairs<1>(a, b[i + 1], ev + i + 2);  // j odd: words i+2, i+4, ..
+    mad_pairs<0>(a, b[i + 1], od + i);      // j even: words i+1, i+3, ..
+  }
+  // r = ev + od * 2^32; word 16 (ev[16], od[15]) is 0 since a * b < 2^512.
+  r[0] = ev[0];
+  r[1] = add_cc(ev[1], od[0]);
+#pragma unroll
+  for (int k = 2; k < 15; ++k) r[k] = addc_cc(ev[k], od[k - 1]);
+  r[15] = addc(ev[15], od[14]);
+}
+
+// r = a^2: the 28 products a[i] * a[j], i < j, once (row i over j > i,
+// split by parity as in mul_wide), doubled by adding the sum to itself,
+// then the 8 squares a[i]^2 at words 2i, 2i + 1 in one chain: 36 wide
+// products instead of 64.
+template <int I>
+__device__ __forceinline__ void sqr_row(const u32 a[8], u32* ev, u32* od) {
+  if (I + 2 < 8) mad_pairs<(I + 2 < 8 ? I + 2 : 7)>(a, a[I], ev + 2 * I + 2);
+  mad_pairs<I + 1>(a, a[I], od + 2 * I);
+}
+
 __device__ __forceinline__ void sqr_wide(const u32 a[8], u32 r[16]) {
+  u32 ev[17], od[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) r[k] = 0;
+  for (int k = 0; k < 17; ++k) ev[k] = 0;
 #pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    u64 c = 0;
+  for (int k = 0; k < 16; ++k) od[k] = 0;
+  sqr_row<0>(a, ev, od);
+  sqr_row<1>(a, ev, od);
+  sqr_row<2>(a, ev, od);
+  sqr_row<3>(a, ev, od);
+  sqr_row<4>(a, ev, od);
+  sqr_row<5>(a, ev, od);
+  sqr_row<6>(a, ev, od);
+  // x = ev + od * 2^32 (words 1..14), then r = 2x + the squares.
+  u32 x[16];
+  x[0] = 0;
+  x[1] = od[0];
+  x[2] = add_cc(ev[2], od[1]);
 #pragma unroll
-    for (int j = i + 1; j < 8; ++j) {
-      c += (u64)a[i] * a[j] + r[i + j];
-      r[i + j] = (u32)c;
-      c >>= 32;
-    }
-    r[i + 8] = (u32)c;
-  }
-  u32 top = 0;
+  for (int k = 3; k < 15; ++k) x[k] = addc_cc(ev[k], od[k - 1]);
+  x[15] = addc(ev[15], od[14]);
+  x[1] = add_cc(x[1], x[1]);
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    u32 nt = r[k] >> 31;
-    r[k] = (r[k] << 1) | top;
-    top = nt;
-  }
-  u64 c = 0;
+  for (int k = 2; k < 16; ++k) x[k] = addc_cc(x[k], x[k]);
+  r[0] = madlo_cc(a[0], a[0], 0u);
+  r[1] = madhic_cc(a[0], a[0], x[1]);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    u64 d = (u64)a[i] * a[i];
-    c += (u64)r[2 * i] + (u32)d;
-    r[2 * i] = (u32)c;
-    c >>= 32;
-    c += (u64)r[2 * i + 1] + (d >> 32);
-    r[2 * i + 1] = (u32)c;
-    c >>= 32;
+  for (int i = 1; i < 8; ++i) {
+    r[2 * i] = madloc_cc(a[i], a[i], x[2 * i]);
+    r[2 * i + 1] = madhic_cc(a[i], a[i], x[2 * i + 1]);
   }
 }
 
@@ -202,18 +312,30 @@ __device__ __forceinline__ u32 fold_word(const u32 lo[8], u32 h, u32 out[8]) {
   return (u32)c;
 }
 
+// Mod p: h * c = h * 977 + h * 2^32 is three words (w0, w1, w2), added to
+// lo by one chain.
+template <>
+__device__ __forceinline__ u32 fold_word<ModP>(const u32 lo[8], u32 h,
+                                               u32 out[8]) {
+  const u32 w0 = h * 977u;
+  const u32 w1 = add_cc(mulhi(h, 977u), h);
+  const u32 w2 = addc(0u, 0u);
+  out[0] = add_cc(lo[0], w0);
+  out[1] = addc_cc(lo[1], w1);
+  out[2] = addc_cc(lo[2], w2);
+#pragma unroll
+  for (int j = 3; j < 8; ++j) out[j] = addc_cc(lo[j], 0u);
+  return addc(0u, 0u);
+}
+
 // out = x - m if x >= m else x  (x < 2^256).
 template <class M>
 __device__ __forceinline__ void cond_sub(const u32 x[8], u32 out[8]) {
   u32 d[8];
-  u64 borrow = 0;
+  d[0] = sub_cc(x[0], M::m(0));
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    u64 t = (u64)x[j] - M::m(j) - borrow;
-    d[j] = (u32)t;
-    borrow = t >> 63;
-  }
-  u32 keep = 0u - (u32)borrow;  // all ones where x < m
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(x[j], M::m(j));
+  const u32 keep = subc(0u, 0u);  // all ones where x < m
 #pragma unroll
   for (int j = 0; j < 8; ++j) out[j] = (x[j] & keep) | (d[j] & ~keep);
 }
@@ -238,6 +360,55 @@ __device__ __forceinline__ void reduce_wide(const u32 r[16], u32 out[8]) {
   cond_sub<M>(u, out);
 }
 
+// Mod p, the same four rounds as carry chains.  Round 1 splits h * 977 by
+// the parity of h's word: ev = lo + (lo, hi) of h[0, 2, 4, 6] * 977 at
+// words 0..8, od = h (shifted one word) + (lo, hi) of h[1, 3, 5, 7] * 977
+// at words 1..9; t = ev + od < 2^289 (t[9] is 0 or 1).  Round 2 folds
+// H = t[8] + 2^32 t[9] as the three words of H * c.
+template <>
+__device__ __forceinline__ void reduce_wide<ModP>(const u32 r[16],
+                                                  u32 out[8]) {
+  const u32* h = r + 8;
+  u32 ev[9], od[9];  // od[k] is word k + 1
+  ev[0] = madlo_cc(h[0], 977u, r[0]);
+  ev[1] = madhic_cc(h[0], 977u, r[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    ev[j] = madloc_cc(h[j], 977u, r[j]);
+    ev[j + 1] = madhic_cc(h[j], 977u, r[j + 1]);
+  }
+  ev[8] = addc(0u, 0u);
+  od[0] = madlo_cc(h[1], 977u, h[0]);
+  od[1] = madhic_cc(h[1], 977u, h[1]);
+#pragma unroll
+  for (int j = 3; j < 8; j += 2) {
+    od[j - 1] = madloc_cc(h[j], 977u, h[j - 1]);
+    od[j] = madhic_cc(h[j], 977u, h[j]);
+  }
+  od[8] = addc(0u, 0u);
+  u32 t[10];
+  t[0] = ev[0];
+  t[1] = add_cc(ev[1], od[0]);
+#pragma unroll
+  for (int k = 2; k < 9; ++k) t[k] = addc_cc(ev[k], od[k - 1]);
+  t[9] = addc(0u, od[8]);
+  // Round 2: H * c = t8 * 977 + 2^32 (t9 * 977 + t8) + 2^64 t9.
+  const u32 w0 = t[8] * 977u;
+  const u32 w1 = add_cc(mulhi(t[8], 977u) + t[9] * 977u, t[8]);
+  const u32 w2 = addc(t[9], 0u);
+  u32 s[8];
+  s[0] = add_cc(t[0], w0);
+  s[1] = addc_cc(t[1], w1);
+  s[2] = addc_cc(t[2], w2);
+#pragma unroll
+  for (int j = 3; j < 8; ++j) s[j] = addc_cc(t[j], 0u);
+  const u32 s8 = addc(0u, 0u);
+  u32 u[8];
+  const u32 carry = fold_word<ModP>(s, s8, u);
+  fold_word<ModP>(u, carry, u);
+  cond_sub<ModP>(u, out);
+}
+
 template <class M>
 __device__ __forceinline__ void fe_mul(const u32 a[8], const u32 b[8],
                                        u32 out[8]) {
@@ -258,23 +429,16 @@ template <class M>
 __device__ __forceinline__ void fe_add(const u32 a[8], const u32 b[8],
                                        u32 out[8]) {
   u32 s[8];
-  u64 c = 0;
+  s[0] = add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c += (u64)a[j] + b[j];
-    s[j] = (u32)c;
-    c >>= 32;
-  }
+  for (int j = 1; j < 8; ++j) s[j] = addc_cc(a[j], b[j]);
+  const u32 c8 = addc(0u, 0u);
   u32 d[8];
-  u64 borrow = 0;
+  d[0] = sub_cc(s[0], M::m(0));
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    u64 t = (u64)s[j] - M::m(j) - borrow;
-    d[j] = (u32)t;
-    borrow = t >> 63;
-  }
-  // keep the sum where the 257-bit value s + 2^256 c8 is < m.
-  u32 keep = 0u - (u32)(borrow & (c ^ 1ull));
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(s[j], M::m(j));
+  // c8 - borrow is all ones exactly where the 257-bit sum is < m: keep it.
+  const u32 keep = subc(c8, 0u);
 #pragma unroll
   for (int j = 0; j < 8; ++j) out[j] = (s[j] & keep) | (d[j] & ~keep);
 }
@@ -284,21 +448,14 @@ template <class M>
 __device__ __forceinline__ void fe_sub(const u32 a[8], const u32 b[8],
                                        u32 out[8]) {
   u32 d[8];
-  u64 borrow = 0;
+  d[0] = sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    u64 t = (u64)a[j] - b[j] - borrow;
-    d[j] = (u32)t;
-    borrow = t >> 63;
-  }
-  u32 mask = 0u - (u32)borrow;
-  u64 c = 0;
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(a[j], b[j]);
+  const u32 mask = subc(0u, 0u);  // all ones where a < b
+  out[0] = add_cc(d[0], M::m(0) & mask);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c += (u64)d[j] + (M::m(j) & mask);
-    out[j] = (u32)c;
-    c >>= 32;
-  }
+  for (int j = 1; j < 7; ++j) out[j] = addc_cc(d[j], M::m(j) & mask);
+  out[7] = addc(d[7], M::m(7) & mask);
 }
 
 template <class M>
@@ -312,15 +469,13 @@ __device__ __forceinline__ void fe_neg(const u32 b[8], u32 out[8]) {
 template <class M>
 __device__ __forceinline__ void fe_mulw(const u32 a[8], u32 w, u32 out[8]) {
   u32 t[8];
-  u64 c = 0;
+  t[0] = a[0] * w;
+  t[1] = add_cc(mulhi(a[0], w), a[1] * w);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c += (u64)a[j] * w;
-    t[j] = (u32)c;
-    c >>= 32;
-  }
+  for (int j = 2; j < 8; ++j) t[j] = addc_cc(mulhi(a[j - 1], w), a[j] * w);
+  const u32 t8 = addc(mulhi(a[7], w), 0u);
   u32 u[8];
-  u32 carry = fold_word<M>(t, (u32)c, u);
+  u32 carry = fold_word<M>(t, t8, u);
   fold_word<M>(u, carry, u);
   cond_sub<M>(u, out);
 }

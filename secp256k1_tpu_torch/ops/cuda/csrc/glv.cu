@@ -1,6 +1,6 @@
 // The GLV kernels: k1*P1 + k2*P2 per lane, the whole windowed
 // double-and-add loop in one launch, in three forms that share one loop
-// (glv_loop below), templated on the table's entry count, the digit
+// (glv_loop, glv.cuh), templated on the table's entry count, the digit
 // encoding and the way the tables arrive.
 //
 // - glv_windowed_mult_signed (k_glv_signed) replaces the Pallas kernel
@@ -31,132 +31,74 @@
 //
 // Bound: 32-bit integer multiply-adds.  Per lane (signed) 2 x 7 table
 // points, 65 lookup-adds and 128 doublings: ~1,800 field multiplies of ~76
-// wide products each; (unsigned) 2 x 14 table points, 64 lookup-adds and
+// wide products each (0.55 ms at 65,536 lanes on an H100: 132 SMs x 64 a
+// clock x 1.98 GHz); (unsigned) 2 x 14 table points, 64 lookup-adds and
 // 124 doublings; (prebuilt tables) 64 lookup-adds and 124 doublings past
-// the identity, after reading its two tables once (5,760 B a lane).
-// Design: one thread per lane; the tables (2 x 8 x 96 B = 1.5 KB, or 2 x
-// 15 x 96 B = 2.9 KB a lane) live in local memory (L1/L2), because
-// registers cannot hold them and shared memory would cap a block at ~100
-// lanes; the window and step loops are not unrolled, so one copy each of
-// the add and the doubling is compiled.
+// the identity, after reading its two tables once (5,760 B a lane).  On
+// the card each wide product is two multiply-adds (lo and hi), so about
+// twice the bound is the floor of any one-thread-a-lane design.
+//
+// Design: one thread per lane, 128 threads a block, at most 128 registers a
+// thread (__launch_bounds__ with four blocks an SM), so the 65,536 lanes of
+// a verify or ECDH batch run in one wave (132 SMs x 512 threads) instead of
+// 1.3 waves whose second one leaves most SMs idle.  The field core
+// (field.cuh) writes each product row, sum and difference as PTX carry
+// chains, about half the instructions of the 64-bit-accumulator core it
+// replaced.  The tables (2 x 8 x 96 B = 1.5 KB, or 2 x 15 x 96 B = 2.9 KB a
+// lane) live in local memory (L1/L2), because registers cannot hold them
+// and shared memory would cap a block at ~100 lanes; the window and step
+// loops are not unrolled, so one copy each of the add and the doubling is
+// compiled.  The design it replaced, the same loop with the 64-bit core at
+// 140 registers (three blocks an SM), took 5.3 ms for the signed form at
+// 65,536 lanes on an H100 80GB HBM3 at 700 W; this one about 2.7 ms.
+// Cooperative lanes (4-8 threads a lane, products by warp shuffles) were
+// not tried.  The per-lane loop is in glv.cuh.
 #include <cuda_runtime.h>
 
-#include "point.cuh"
+#include "glv.cuh"
 
-template <bool SIGNED, class Tab>
-__device__ __forceinline__ u32 select_entry(const Tab& tab, int d, Pt& sel) {
-  const u32 mag = SIGNED ? ((u32)d & 0xFu) : (u32)d;
-  fe_set_small(sel.x, 0);
-  fe_set_small(sel.y, 0);
-  fe_set_small(sel.z, 0);
-  tab.scan(mag, sel);
-  if (SIGNED) {
-    u32 ny[8];
-    fe_neg<ModP>(sel.y, ny);
-    fe_cmov(sel.y, ny, 0u - (((u32)d >> 4) & 1u));
-  }
-  return mag;
-}
+constexpr int GLV_THREADS = 128;
+constexpr int GLV_MIN_BLOCKS = 4;
 
-template <bool SIGNED, class Tab>
-__device__ __forceinline__ void lookup_add(Pt& acc, const Tab& tab, int d) {
-  Pt sel;
-  const u32 mag = select_entry<SIGNED>(tab, d, sel);
-  Pt sum;
-  pt_add(acc, sel, sum);
-  pt_cmov(acc, sum, 0u - (u32)(mag != 0u));
-}
-
-// acc = sum over windows, as described above.  FROM_IDENTITY selects the
-// prebuilt-table schedule (identity start, 4 doublings in every window).
-template <bool SIGNED, bool FROM_IDENTITY, class Tab>
-__device__ __forceinline__ void glv_loop(const int* d1, const int* d2,
-                                         const Tab& t1, const Tab& t2,
-                                         int lanes, int lane, int n_windows,
-                                         Pt& acc) {
-  int w0 = 0;
-  if (FROM_IDENTITY) {
-    pt_set_identity(acc);
-  } else {
-    // Window 0: a select from table 1, then a lookup-add from table 2.
-    const u32 mag0 = select_entry<SIGNED>(t1, d1[lane], acc);
-    u32 one[8];
-    fe_set_small(one, 1);
-    fe_cmov(acc.y, one, 0u - (u32)(mag0 == 0u));
-    lookup_add<SIGNED>(acc, t2, d2[lane]);
-    w0 = 1;
-  }
-#pragma unroll 1
-  for (int w = w0; w < n_windows; ++w) {
-#pragma unroll 1
-    for (int i = 0; i < 4; ++i) pt_double(acc, acc);
-#pragma unroll 1
-    for (int t = 0; t < 2; ++t) {
-      const int* d = t == 0 ? d1 : d2;
-      lookup_add<SIGNED>(acc, t == 0 ? t1 : t2, d[(size_t)w * lanes + lane]);
-    }
-  }
-}
-
-template <bool SIGNED, int E>
-__device__ __forceinline__ void glv_from_points(
-    const int* d1, const int* d2, const int* p1x, const int* p1y,
-    const int* p1z, const int* p2x, const int* p2y, const int* p2z, int* ox,
-    int* oy, int* oz, int lanes, int n_windows) {
+__global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)
+    k_glv_signed(const int* d1, const int* d2, const int* p1x,
+                 const int* p1y, const int* p1z, const int* p2x,
+                 const int* p2y, const int* p2z, int* ox, int* oy, int* oz,
+                 int lanes, int n_windows) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  LocalTable<E> t1, t2;
-  Pt p;
-  pt_load(p1x, p1y, p1z, lanes, lane, p);
-  t1.build(p);
-  pt_load(p2x, p2y, p2z, lanes, lane, p);
-  t2.build(p);
-  Pt acc;
-  glv_loop<SIGNED, false>(d1, d2, t1, t2, lanes, lane, n_windows, acc);
-  pt_store(ox, oy, oz, lanes, lane, acc);
-}
-
-__global__ void k_glv_signed(const int* d1, const int* d2, const int* p1x,
-                             const int* p1y, const int* p1z, const int* p2x,
-                             const int* p2y, const int* p2z, int* ox,
-                             int* oy, int* oz, int lanes, int n_windows) {
   glv_from_points<true, 8>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy, oz,
-                           lanes, n_windows);
+                           lanes, n_windows, lane);
 }
 
-__global__ void k_glv_unsigned(const int* d1, const int* d2, const int* p1x,
-                               const int* p1y, const int* p1z,
-                               const int* p2x, const int* p2y,
-                               const int* p2z, int* ox, int* oy, int* oz,
-                               int lanes, int n_windows) {
-  glv_from_points<false, 15>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy,
-                             oz, lanes, n_windows);
-}
-
-__global__ void k_glv_tables(const int* d1, const int* d2, const int* t1,
-                             const int* t2, int* ox, int* oy, int* oz,
-                             int lanes, int n_windows) {
+__global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)
+    k_glv_unsigned(const int* d1, const int* d2, const int* p1x,
+                   const int* p1y, const int* p1z, const int* p2x,
+                   const int* p2y, const int* p2z, int* ox, int* oy,
+                   int* oz, int lanes, int n_windows) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  LocalTable<15> tab1, tab2;
-  tab1.load(t1, lanes, lane);
-  tab2.load(t2, lanes, lane);
-  Pt acc;
-  glv_loop<false, true>(d1, d2, tab1, tab2, lanes, lane, n_windows, acc);
-  pt_store(ox, oy, oz, lanes, lane, acc);
+  glv_from_points<false, 15>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy,
+                             oz, lanes, n_windows, lane);
 }
 
-static const int kThreads = 128;
+__global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)
+    k_glv_tables(const int* d1, const int* d2, const int* t1, const int* t2,
+                 int* ox, int* oy, int* oz, int lanes, int n_windows) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  glv_from_tables(d1, d2, t1, t2, ox, oy, oz, lanes, n_windows, lane);
+}
 
 static dim3 grid_for(int lanes) {
-  return dim3((unsigned)((lanes + kThreads - 1) / kThreads));
+  return dim3((unsigned)((lanes + GLV_THREADS - 1) / GLV_THREADS));
 }
 
 extern "C" int glv_windowed_mult_signed(
     const void* d1, const void* d2, const void* p1x, const void* p1y,
     const void* p1z, const void* p2x, const void* p2y, const void* p2z,
     void* ox, void* oy, void* oz, int lanes, int n_windows, void* stream) {
-  k_glv_signed<<<grid_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
+  k_glv_signed<<<grid_for(lanes), GLV_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)d1, (const int*)d2, (const int*)p1x, (const int*)p1y,
       (const int*)p1z, (const int*)p2x, (const int*)p2y, (const int*)p2z,
       (int*)ox, (int*)oy, (int*)oz, lanes, n_windows);
@@ -167,7 +109,7 @@ extern "C" int glv_windowed_mult_unsigned(
     const void* d1, const void* d2, const void* p1x, const void* p1y,
     const void* p1z, const void* p2x, const void* p2y, const void* p2z,
     void* ox, void* oy, void* oz, int lanes, int n_windows, void* stream) {
-  k_glv_unsigned<<<grid_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
+  k_glv_unsigned<<<grid_for(lanes), GLV_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)d1, (const int*)d2, (const int*)p1x, (const int*)p1y,
       (const int*)p1z, (const int*)p2x, (const int*)p2y, (const int*)p2z,
       (int*)ox, (int*)oy, (int*)oz, lanes, n_windows);
@@ -179,7 +121,7 @@ extern "C" int glv_windowed_mult_tables(const void* d1, const void* d2,
                                         void* ox, void* oy, void* oz,
                                         int lanes, int n_windows,
                                         void* stream) {
-  k_glv_tables<<<grid_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
+  k_glv_tables<<<grid_for(lanes), GLV_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)d1, (const int*)d2, (const int*)t1, (const int*)t2,
       (int*)ox, (int*)oy, (int*)oz, lanes, n_windows);
   return (int)cudaGetLastError();

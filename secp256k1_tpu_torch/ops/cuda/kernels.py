@@ -16,7 +16,8 @@ Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` has here
   tests run and `chip_smoke.py` compares the kernel with on the card;
 - a count of launches (`LAUNCHES`), raised by one where the wrapper
   launches its kernel and nowhere else, and a count of wrapper calls that
-  took the plain version (`PLAIN_CALLS`).
+  took the plain version (`PLAIN_CALLS`); `mod_pow2k`'s launches are also
+  tallied by lanes and k (`POW2K_SHAPES`).
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
@@ -50,6 +51,7 @@ KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "point_lookup_add")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+POW2K_SHAPES: dict = {}         # mod_pow2k launches by (lanes, k)
 
 
 # The whole GLV loop in one launch (mega), with signed 8-entry windows
@@ -81,6 +83,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    POW2K_SHAPES.clear()
 
 
 def _on_cpu(*ts) -> bool:
@@ -454,6 +457,7 @@ def mod_pow2k(a: torch.Tensor, k: int, modulus: int) -> torch.Tensor:
     out = torch.empty_like(a)
     _launch("mod_pow2k", "modops", "mod_pow2k", [a, out],
             [lanes, k, MOD_ID[modulus]])
+    POW2K_SHAPES[lanes, k] = POW2K_SHAPES.get((lanes, k), 0) + 1
     return out
 
 
@@ -569,8 +573,11 @@ def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
     """Pippenger partial buckets of every window in one launch: int32
     [W, n_buckets, 3, 16, m_slots] (see `msm_bucket_accumulate_all_plain`
     for the function).  digits int32 [W, N]; px, py, pz int32 [16, N]; any
-    N (the ragged edge counts as digit 0).  Replaces Pallas
-    `msm_bucket_accumulate_all` (kernels.py:1232)."""
+    N.  Replaces Pallas `msm_bucket_accumulate_all` (kernels.py:1232).
+
+    The kernel addresses a bucket by its digit (MSM's scalars are public;
+    see `csrc/msm.cu`) and keeps the buckets in a device-memory scratch
+    buffer of W * m_slots * n_buckets * 96 bytes, allocated here."""
     name = "msm_bucket_accumulate_all"
     on_cpu = _on_cpu(digits, px, py, pz)
     if digits.dim() != 2:
@@ -587,16 +594,12 @@ def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
         PLAIN_CALLS[name] += 1
         return msm_bucket_accumulate_all_plain(digits, px, py, pz, n_buckets,
                                                signed_digits, m_slots)
-    # The kernel keeps each slot's buckets in shared memory (96 B each); the
-    # CUDA side sizes the block from the card's shared memory.
-    if build.library("msm").msm_bucket_threads(n_buckets) < 32:
-        raise ValueError(f"{name}: {n_buckets} buckets a slot leave fewer "
-                         "than 32 threads a block in this card's shared "
-                         "memory")
     out = torch.empty((w, n_buckets, 3, 16, m_slots), dtype=torch.int32,
                       device=digits.device)
+    scratch = torch.empty((w * m_slots * n_buckets * 24,), dtype=torch.int32,
+                          device=digits.device)
     _launch(name, "msm", "msm_bucket_accumulate_all",
-            [digits, px, py, pz, out],
+            [digits, px, py, pz, scratch, out],
             [w, n, n_buckets, int(signed_digits), m_slots])
     return out
 

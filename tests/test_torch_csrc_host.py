@@ -1,0 +1,402 @@
+"""The CUDA kernels' field core and point formulas, compiled for the host.
+
+`secp256k1_tpu_torch/ops/cuda/csrc/field.cuh` writes every multi-word sum,
+difference and product as PTX carry chains; compiled by a plain C++
+compiler it emulates the same primitives with a carry variable.  This file
+builds `field.cuh` and `point.cuh` with g++ into a small library (a harness
+below, one C function a formula over arrays of 8-word values) and holds it
+against python ints (the field operations mod p and mod n, the edge values
+of `tests/test_kernel_bodies.py` among them) and against the port's plain
+point formulas (`ops/cuda/kernels.py`: the same projective X, Y, Z that the
+kernels must give on the card).  Tolerance 0 throughout.
+
+What this cannot see: the PTX itself (nvcc is not needed here) and the
+kernels' memory layouts; `chip_smoke.py` holds every kernel against its
+plain version on the card.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from secp256k1_tpu_torch.ops import limbs as lb
+from secp256k1_tpu_torch.ops.cuda import build
+from secp256k1_tpu_torch.ops.cuda import kernels as K
+from secp256k1_tpu_torch.utils import hostcurve as hc
+
+torch.set_num_threads(1)
+
+P, N = hc.P, hc.N
+
+HARNESS = r"""
+#include <vector>
+
+#include "glv.cuh"
+#include "msm.cuh"
+
+template <class M>
+static void field_op(int op, const u32* a, const u32* b, u32* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const u32* x = a + 8 * i;
+    const u32* y = b + 8 * i;
+    u32* r = out + 8 * i;
+    switch (op) {
+      case 0: fe_mul<M>(x, y, r); break;
+      case 1: fe_sqr<M>(x, r); break;
+      case 2: fe_add<M>(x, y, r); break;
+      case 3: fe_sub<M>(x, y, r); break;
+      case 4: fe_neg<M>(x, r); break;
+      case 5: fe_mulw<M>(x, 21u, r); break;
+    }
+  }
+}
+
+extern "C" void reduce_ops(int mod, const u32* r, u32* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (mod == 0) reduce_wide<ModP>(r + 16 * i, out + 8 * i);
+    else reduce_wide<ModN>(r + 16 * i, out + 8 * i);
+  }
+}
+
+extern "C" void field_ops(int op, int mod, const u32* a, const u32* b,
+                          u32* out, int n) {
+  if (mod == 0) field_op<ModP>(op, a, b, out, n);
+  else field_op<ModN>(op, a, b, out, n);
+}
+
+static Pt unpack(const u32* w) {
+  Pt p;
+  for (int k = 0; k < 8; ++k) {
+    p.x[k] = w[k];
+    p.y[k] = w[8 + k];
+    p.z[k] = w[16 + k];
+  }
+  return p;
+}
+
+extern "C" void point_ops(int op, const u32* a, const u32* b, u32* out,
+                          int n) {
+  for (int i = 0; i < n; ++i) {
+    Pt p = unpack(a + 24 * i), q = unpack(b + 24 * i), r;
+    if (op == 0) pt_add(p, q, r);
+    else if (op == 1) pt_double(p, r);
+    else pt_add_mixed(p, q.x, q.y, r);
+    for (int k = 0; k < 8; ++k) {
+      out[24 * i + k] = r.x[k];
+      out[24 * i + 8 + k] = r.y[k];
+      out[24 * i + 16 + k] = r.z[k];
+    }
+  }
+}
+
+// k_msm_buckets thread by thread.
+extern "C" void msm_buckets(const int* digits, const int* px, const int* py,
+                            const int* pz, int* out, int n_windows,
+                            int n_points, int n_buckets, int signed_digits,
+                            int m_slots) {
+  const int threads = n_windows * m_slots;
+  std::vector<uint4> scratch((size_t)threads * n_buckets * 6);
+  for (int t = 0; t < threads; ++t)
+    msm_walk(scratch.data() + (size_t)t * n_buckets * 6, digits, px, py, pz,
+             out, t / m_slots, t % m_slots, n_points, n_buckets,
+             signed_digits, m_slots);
+}
+
+// The GLV kernels lane by lane: kind 0 k_glv_signed, 1 k_glv_unsigned
+// (p* the points' planes), 2 k_glv_tables (p1x, p2x the lane tables).
+extern "C" void glv_lanes(int kind, const int* d1, const int* d2,
+                          const int* p1x, const int* p1y, const int* p1z,
+                          const int* p2x, const int* p2y, const int* p2z,
+                          int* ox, int* oy, int* oz, int lanes,
+                          int n_windows) {
+  for (int lane = 0; lane < lanes; ++lane) {
+    if (kind == 0)
+      glv_from_points<true, 8>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy,
+                               oz, lanes, n_windows, lane);
+    else if (kind == 1)
+      glv_from_points<false, 15>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox,
+                                 oy, oz, lanes, n_windows, lane);
+    else
+      glv_from_tables(d1, d2, p1x, p2x, ox, oy, oz, lanes, n_windows, lane);
+  }
+}
+"""
+
+FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4, "mulw21": 5}
+POINT_OPS = {"add": 0, "double": 1, "add_mixed": 2}
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    """The harness built with g++ into build/, keyed by the sources."""
+    h = hashlib.sha256(HARNESS.encode())
+    for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh"):
+        with open(os.path.join(build.CSRC, name), "rb") as fh:
+            h.update(fh.read())
+    out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
+    lib = os.path.join(out_dir, "libcsrchost.so")
+    if not os.path.exists(lib):
+        os.makedirs(out_dir, exist_ok=True)
+        src = os.path.join(out_dir, "harness.cpp")
+        with open(src, "w") as fh:
+            fh.write(HARNESS)
+        tmp = f"{lib}.tmp{os.getpid()}"
+        proc = subprocess.run(
+            ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wall",
+             "-I", build.CSRC, "-o", tmp, src],
+            capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr
+        os.replace(tmp, lib)
+    return ctypes.CDLL(lib)
+
+
+def _words(vals):
+    return np.array([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+                     for v in vals], dtype=np.uint32)
+
+
+def _ints(words):
+    return [sum(int(w) << (32 * k) for k, w in enumerate(row))
+            for row in words.reshape(-1, 8)]
+
+
+def _ptr(arr):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def _vals(m, rng, k=64):
+    """The edge values of tests/test_kernel_bodies.py, values next to
+    2^256 - 1 and powers of two (long carry runs), then random ones."""
+    edge = [0, 1, 2, m - 1, m - 2, 2**255 % m, (m >> 1) + 1,
+            2**32 - 1, 2**64 - 1, 2**224 - 1, m - 2**32]
+    rand = [int.from_bytes(rng.bytes(32), "big") % m
+            for _ in range(k - len(edge))]
+    return edge + rand
+
+
+def _field_want(op, m, a, b):
+    return {"mul": a * b, "sqr": a * a, "add": a + b, "sub": a - b,
+            "neg": -a, "mulw21": 21 * a}[op] % m
+
+
+@pytest.mark.parametrize("mod", ["p", "n"])
+@pytest.mark.parametrize("op", sorted(FIELD_OPS))
+def test_field_core_matches_python_ints(host_lib, op, mod):
+    m = P if mod == "p" else N
+    rng = np.random.default_rng(FIELD_OPS[op] * 2 + (mod == "n"))
+    a = _vals(m, rng)
+    b = _vals(m, rng)[::-1]
+    # every pair of edge values, then the random pairs
+    a, b = zip(*([(x, y) for x in a[:11] for y in a[:11]]
+                 + list(zip(a[11:], b[11:]))))
+    out = np.zeros((len(a), 8), np.uint32)
+    aw, bw = _words(a), _words(b)
+    host_lib.field_ops(FIELD_OPS[op], int(mod == "n"), _ptr(aw), _ptr(bw),
+                       _ptr(out), len(a))
+    assert _ints(out) == [_field_want(op, m, x, y) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_field_mul_takes_any_input_below_2_256(host_lib, op):
+    """fe_mul and fe_sqr accept non-canonical inputs < 2^256, words of all
+    ones among them (every carry of the product chains taken)."""
+    rng = np.random.default_rng(5)
+    a = [2**256 - 1 - v for v in range(8)] + [
+        (2**256 - 1) ^ (0xFFFFFFFF << (32 * k)) for k in range(8)] + [
+        int.from_bytes(rng.bytes(32), "big") for _ in range(48)]
+    b = a[::-1] if op == "mul" else a
+    for mod, m in ((0, P), (1, N)):
+        out = np.zeros((len(a), 8), np.uint32)
+        host_lib.field_ops(FIELD_OPS[op], mod, _ptr(_words(a)),
+                           _ptr(_words(b)), _ptr(out), len(a))
+        assert _ints(out) == [x * y % m for x, y in zip(a, b)]
+
+
+def test_reduction_of_any_512_bit_value(host_lib):
+    """reduce_wide on 512-bit values whose words are 0, 2^32 - 1, 2^32 -
+    977, 2^32 - 1954 or random: the rare carries of the folds (a chain
+    that ends at 2^32 - 1 and takes one more carry) come from such words."""
+    rng = np.random.default_rng(6)
+    choices = np.array([0, 2**32 - 1, 2**32 - 977, 2**32 - 1954],
+                       dtype=np.uint64)
+    words = np.where(rng.random((2048, 16)) < 0.8,
+                     choices[rng.integers(0, 4, (2048, 16))],
+                     rng.integers(0, 2**32, (2048, 16), dtype=np.uint64))
+    words[0] = 2**32 - 1
+    words = words.astype(np.uint32)
+    vals = [sum(int(w) << (32 * k) for k, w in enumerate(row))
+            for row in words]
+    for mod, m in ((0, P), (1, N)):
+        out = np.zeros((len(vals), 8), np.uint32)
+        host_lib.reduce_ops(mod, _ptr(words), _ptr(out), len(vals))
+        assert _ints(out) == [v % m for v in vals]
+
+
+def _point_operands(rng, lanes=48):
+    """Projective (P, Q) with random Z: random pairs, P == Q, P == -Q,
+    the identity (0, Z, 0) on either side; Q affine for the mixed add."""
+    ks = [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
+          for _ in range(2 * lanes)]
+    a = [hc.mul(k, hc.G) for k in ks[:lanes]]
+    b = [hc.mul(k, hc.G) for k in ks[lanes:]]
+    b[0:4] = a[0:4]
+    b[4:8] = [hc.neg(p) for p in a[4:8]]
+    zs = [int.from_bytes(rng.bytes(32), "big") % (P - 1) + 1
+          for _ in range(2 * lanes)]
+
+    def proj(pts, zz, ident):
+        out = []
+        for i, (pt, z) in enumerate(zip(pts, zz)):
+            out.append((0, z, 0) if i in ident else
+                       (pt[0] * z % P, pt[1] * z % P, z))
+        return out
+    p = proj(a, zs[:lanes], range(8, 10))
+    q = proj(b, zs[lanes:], range(10, 12))
+    q_aff = [(pt[0], pt[1], 1) for pt in b]
+    return p, q, q_aff
+
+
+def _xyz_words(triples):
+    return np.concatenate([_words([t[c] for t in triples])
+                           for c in range(3)], axis=1)
+
+
+def _planes(triples):
+    return [torch.as_tensor(lb.int_to_limbs_batch([t[c] for t in triples]),
+                            dtype=torch.int32) for c in range(3)]
+
+
+@pytest.mark.parametrize("op", sorted(POINT_OPS))
+def test_point_formulas_match_the_plain_versions(host_lib, op):
+    """X, Y, Z word for word against the plain version of the kernel."""
+    p, q, q_aff = _point_operands(np.random.default_rng(40 + POINT_OPS[op]))
+    if op == "add_mixed":
+        q = q_aff
+    out = np.zeros((len(p), 24), np.uint32)
+    host_lib.point_ops(POINT_OPS[op], _ptr(_xyz_words(p)),
+                       _ptr(_xyz_words(q)), _ptr(out), len(p))
+    pp, qq = _planes(p), _planes(q)
+    if op == "add":
+        want = K.point_add_plain(*pp, *qq)
+    elif op == "double":
+        want = K.point_double_plain(*pp)
+    else:
+        want = K.point_add_mixed_plain(*pp, *qq[:2])
+    for c in range(3):
+        got = _ints(np.ascontiguousarray(out[:, 8 * c:8 * c + 8]))
+        assert got == lb.limbs_to_int_batch(want[c])
+
+
+# ---------------------------------------------------------------------------
+# The kernels' per-thread bodies: the bucket walk and the GLV loop.
+# ---------------------------------------------------------------------------
+
+def _np32(t):
+    return np.ascontiguousarray(t.numpy().astype(np.int32))
+
+
+def _affine_planes(rng, n):
+    """Random points a_i * G with random Z, as int32 [16, n] planes."""
+    pts = [hc.mul(int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1, hc.G)
+           for _ in range(n)]
+    zs = [int.from_bytes(rng.bytes(32), "big") % (P - 1) + 1
+          for _ in range(n)]
+    return _planes([(q[0] * z % P, q[1] * z % P, z)
+                    for q, z in zip(pts, zs)])
+
+
+# (signed, n_buckets, n_points, m_slots): a 4-bit unsigned window, signed
+# 5- and 6-bit windows, a ragged N, three slots, one slot, and fewer
+# points than slots (slots that see no point keep the identity).
+MSM_CASES = [(False, 15, 96, 16), (True, 16, 80, 16), (True, 32, 77, 8),
+             (False, 15, 31, 3), (True, 16, 40, 1), (False, 15, 24, 40),
+             (True, 32, 40, 48), (False, 15, 101, 7)]
+
+
+@pytest.mark.parametrize("signed,nb,n,m", MSM_CASES,
+                         ids=["w4", "signed-w5", "signed-w6-ragged",
+                              "w4-3-slots", "signed-w5-1-slot",
+                              "w4-fewer-points-than-slots",
+                              "signed-w6-fewer-points-than-slots",
+                              "w4-ragged-7-slots"])
+def test_bucket_walk_matches_the_plain_version(host_lib, signed, nb, n, m):
+    """Digits that hit every bucket, 0, and magnitudes above nb (which the
+    kernel must discard without touching a bucket), against
+    `msm_bucket_accumulate_all_plain`."""
+    rng = np.random.default_rng(nb * 1000 + n)
+    n_windows = 3
+    digits = rng.integers(0, nb + 1, (n_windows, n))
+    digits[0, :nb + 1] = np.arange(nb + 1)             # every bucket and 0
+    over = rng.random((n_windows, n)) < 0.15
+    digits[over] = rng.integers(nb + 1, 64, int(over.sum()))
+    if signed:
+        digits |= rng.integers(0, 2, (n_windows, n)) << 6
+    else:
+        digits[1, :4] = [64, 65, 1 << 20, 2**31 - 1]     # far above nb
+    digits = torch.as_tensor(digits, dtype=torch.int32)
+    px, py, pz = _affine_planes(rng, n)
+    py[:, 5] = py[:, 4]                                # a repeated point
+    px[:, 5], pz[:, 5] = px[:, 4], pz[:, 4]
+    want = K.msm_bucket_accumulate_all_plain(digits, px, py, pz, nb, signed,
+                                             m)
+    out = np.zeros((n_windows, nb, 3, 16, m), np.int32)
+    d, x, y, z = (_np32(t) for t in (digits, px, py, pz))
+    host_lib.msm_buckets(_ptr(d), _ptr(x), _ptr(y), _ptr(z), _ptr(out),
+                         n_windows, n, nb, int(signed), m)
+    assert np.array_equal(out, want.numpy())
+
+
+def _glv_digits(rng, n_windows, lanes, signed):
+    if signed:
+        mag = rng.integers(0, 9, (n_windows, lanes))
+        return mag | (rng.integers(0, 2, (n_windows, lanes)) << 4)
+    return rng.integers(0, 16, (n_windows, lanes))
+
+
+@pytest.mark.parametrize("kind", ["signed", "unsigned", "tables"])
+def test_glv_lanes_match_the_plain_versions(host_lib, kind):
+    """The three GLV kernels' lane body at 8 windows: all-zero digit
+    columns, magnitude 0 with the sign bit set (window 0 too), magnitude 8
+    of either sign, the identity (0, Z, 0) as P1 or P2."""
+    rng = np.random.default_rng({"signed": 1, "unsigned": 2, "tables": 3}[kind])
+    lanes, n_windows, signed = 12, 8, kind == "signed"
+    d1 = _glv_digits(rng, n_windows, lanes, signed)
+    d2 = _glv_digits(rng, n_windows, lanes, signed)
+    d1[:, 0] = 0                                       # all-zero columns
+    d2[:, 1] = 0
+    if signed:
+        d1[:, 2] = 16                                  # magnitude 0, sign 1
+        d2[0, 3] = 16
+        d1[:, 4], d2[:, 4] = 8, 8 | 16                 # magnitude 8
+    else:
+        d1[:, 4], d2[:, 4] = 15, 15
+    d1, d2 = (torch.as_tensor(d, dtype=torch.int32) for d in (d1, d2))
+    p1, p2 = _affine_planes(rng, lanes), _affine_planes(rng, lanes)
+    for p, lane in ((p1, 5), (p2, 6)):                 # the identity
+        p[1][:, lane] = p[2][:, lane]
+        p[0][:, lane] = 0
+        p[2][:, lane] = 0
+    if kind == "tables":
+        from secp256k1_tpu_torch.ops import point as pt
+        from secp256k1_tpu_torch.ops import table as tbl
+        t1, t2 = (tbl.build_lane_table(pt.Point(*p)) for p in (p1, p2))
+        want = K.glv_windowed_mult_plain(d1, d2, t1, t2)
+        ops = [_np32(t1), None, None, _np32(t2), None, None]
+    else:
+        plain = (K.glv_windowed_mult_signed_from_points_plain if signed
+                 else K.glv_windowed_mult_from_points_plain)
+        want = plain(d1, d2, tuple(p1), tuple(p2))
+        ops = [_np32(c) for c in list(p1) + list(p2)]
+    outs = [np.zeros((16, lanes), np.int32) for _ in range(3)]
+    a1, a2 = _np32(d1), _np32(d2)
+    host_lib.glv_lanes({"signed": 0, "unsigned": 1, "tables": 2}[kind],
+                       _ptr(a1), _ptr(a2),
+                       *[None if o is None else _ptr(o) for o in ops],
+                       *[_ptr(o) for o in outs], lanes, n_windows)
+    for got, w in zip(outs, want):
+        assert np.array_equal(got, w.numpy())

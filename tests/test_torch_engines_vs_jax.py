@@ -13,9 +13,9 @@ Both packages get the same numpy inputs through
   which is the not-mega schedule (identity start, `double_n`, lookup,
   add, select): its projective X, Y, Z against the port's
   `set_mega(False)` route.
-- The Pallas bodies `_glv_mega_frompoints_kernel(signed_digits=False,
-  n_entries=15)` and `_glv_mega_kernel`, run eagerly on numpy refs at
-  three windows, against the plain #7 and #9; `_point_add_mixed_body`
+- The Pallas bodies `_glv_mega_frompoints_kernel` (signed_digits=True,
+  n_entries=8, and False, 15) and `_glv_mega_kernel`, run eagerly on
+  numpy refs at three windows, against the plain #4, #7 and #9; `_point_add_mixed_body`
   and four `_point_double_body` against the plain #13 and #12.
 - The JAX `table.scalar_base_mult` (on the CPU always its scan path) at
   `set_base_signed(False)` and at signed widths 4, 6 and 12: the port's
@@ -135,6 +135,40 @@ def test_glv_from_points_unsigned_matches_the_pallas_body():
         kernel(_eager_rows(d1), _eager_rows(d2),
                *[_eager_rows(c) for c in p1 + p2], *outs, *scratch)
     got = K.glv_windowed_mult_from_points_plain(
+        convert.plane_to_torch(d1), convert.plane_to_torch(d2),
+        tuple(convert.plane_to_torch(c) for c in p1),
+        tuple(convert.plane_to_torch(c) for c in p2))
+    _assert_same(got, outs)
+
+
+def test_glv_signed_from_points_matches_the_pallas_body():
+    """The plain #4 against `_glv_mega_frompoints_kernel(signed_digits=
+    True, n_entries=8)` run eagerly: magnitude 0 with the sign bit set
+    (window 0 and later), magnitude 8 of either sign, P1 the identity on
+    lane 3."""
+    rng = np.random.default_rng(47)
+    p1, _ = _points_np(rng, EAGER_LANES)
+    p2, _ = _points_np(rng, EAGER_LANES)
+    p1 = [c.copy() for c in p1]
+    p1[1][:, 3] = p1[2][:, 3]                    # (0, Z, 0)
+    p1[0][:, 3] = 0
+    p1[2][:, 3] = 0
+    shape = (EAGER_WINDOWS, EAGER_LANES)
+    d1 = (rng.integers(0, 9, shape) | rng.integers(0, 2, shape) << 4)
+    d2 = (rng.integers(0, 9, shape) | rng.integers(0, 2, shape) << 4)
+    d1[:, 0] = 16                                # magnitude 0, sign set
+    d2[0, 1] = 16
+    d1[:, 2], d2[:, 2] = 8, 8 | 16               # magnitude 8
+    d1, d2 = d1.astype(np.uint32), d2.astype(np.uint32)
+    outs = [np.zeros((16, 1, EAGER_LANES), np.uint32) for _ in range(3)]
+    scratch = [np.zeros((8, 3, 16, 1, EAGER_LANES), np.uint32)
+               for _ in range(2)]
+    kernel = pk._glv_mega_frompoints_kernel(EAGER_WINDOWS, 8, False, True)
+    with jax.disable_jit():
+        kernel(_eager_rows(d1), _eager_rows(d2),
+               *[_eager_rows(c) for c in list(p1) + list(p2)], *outs,
+               *scratch)
+    got = K.glv_windowed_mult_signed_from_points_plain(
         convert.plane_to_torch(d1), convert.plane_to_torch(d2),
         tuple(convert.plane_to_torch(c) for c in p1),
         tuple(convert.plane_to_torch(c) for c in p2))

@@ -126,10 +126,13 @@ def _neg_y(y):
     return lb.int_to_limbs_batch(vals).astype(np.uint32)
 
 
-# Two steps of M points (each step is one eager add of about 4 s); lane
-# slots 0-43 take the same digit in both, so the second step adds into
-# buckets the first filled.
-BUCKET_CASES = [(False, 512), (True, 512), (False, 300), (True, 300)]
+# Two steps of M points (each step is one eager add of about 4 s, all
+# cases in one); lane slots 0-43 take the same digit in both, so the second
+# step adds into buckets the first filled.  n = 511 and 513: magnitudes
+# above nb on a fifth of the digits, which must be discarded (the CUDA
+# kernel addresses the bucket by the digit and skips them).
+BUCKET_CASES = [(False, 512), (True, 512), (False, 300), (True, 300),
+                (False, 511), (True, 513)]
 BUCKET_W, BUCKET_M = 3, 256
 
 
@@ -137,6 +140,11 @@ def _bucket_inputs(signed, n):
     rng = np.random.default_rng(7 + n + signed)
     nb = 8 if signed else 15
     digits = rng.integers(0, nb + 1, (BUCKET_W, n))
+    if n in (511, 513):
+        over = rng.random((BUCKET_W, n)) < 0.2
+        digits[over] = rng.integers(nb + 1, 64, int(over.sum()))
+        if not signed:
+            digits[1, 5:9] = [64, 65, 1 << 20, 2**31 - 1]
     if signed:
         digits |= rng.integers(0, 2, (BUCKET_W, n)) << 6
     digits[0, :5] = [0, 1, nb, 0, nb]                    # edges on lane slots
@@ -193,7 +201,8 @@ def _oracle_buckets():
 
 @pytest.mark.parametrize("signed,n", BUCKET_CASES,
                          ids=["unsigned", "signed", "unsigned-ragged",
-                              "signed-ragged"])
+                              "signed-ragged", "unsigned-above-nb",
+                              "signed-above-nb"])
 def test_plain_bucket_kernel_matches_pallas_body(signed, n):
     digits, p, nb = _bucket_inputs(signed, n)
     K.reset_counts()
@@ -210,6 +219,39 @@ def test_plain_bucket_kernel_matches_pallas_body(signed, n):
     tiled = convert.buckets_from_torch(got)
     assert tiled.shape == (BUCKET_W, nb, 3, 16, BUCKET_M // 128, 128)
     assert torch.equal(convert.buckets_to_torch(tiled), got)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+def test_plain_bucket_walk_with_three_slots_matches_python_ints(signed):
+    """m_slots = 3 (a shape the Pallas body does not take) at a ragged N,
+    magnitudes above nb among the digits: every partial bucket in affine
+    against the python-int sum of its slot's points n = j mod 3 whose
+    digit selects it."""
+    rng = np.random.default_rng(90 + signed)
+    nb, n, w, m = (8 if signed else 15), 31, 2, 3
+    digits = rng.integers(0, 64, (w, n))
+    digits[0, :nb + 1] = np.arange(nb + 1)
+    if signed:
+        digits |= rng.integers(0, 2, (w, n)) << 6
+    pick = rng.integers(0, len(_base_points()), n)
+    affine = [_base_points()[i] for i in pick]
+    p = _points(affine, [v + 1 for v in _rand(P - 1, n, rng)])
+    got = K.msm_bucket_accumulate_all(
+        torch.as_tensor(digits, dtype=torch.int32), *p, nb,
+        signed_digits=signed, m_slots=m)
+    assert got.shape == (w, nb, 3, 16, m)
+    for wi in range(w):
+        for b in range(nb):
+            want = [None] * m
+            for i in range(n):
+                d = int(digits[wi, i])
+                mag, neg = (d & 0x3F, d >> 6 == 1) if signed else (d, False)
+                if mag == b + 1:
+                    pt_i = affine[i]
+                    if neg:
+                        pt_i = (pt_i[0], P - pt_i[1])
+                    want[i % m] = gold.affine_add(want[i % m], pt_i)
+            assert _affine(pt.Point(*got[wi, b].unbind(0))) == want
 
 
 # ---------------------------------------------------------------------------

@@ -273,6 +273,57 @@ def test_glv_plain_kernel_with_signed_zero_digits():
     assert _affine(got) == want
 
 
+def _digit_value(col):
+    """A lane's signed 4-bit digits, most significant window first."""
+    val = 0
+    for d in map(int, col):
+        val = val * 16 + (-(d & 0xF) if d >> 4 else d & 0xF)
+    return val
+
+
+@pytest.mark.parametrize("case", ["identity-p1", "identity-p2",
+                                  "magnitude-8"])
+def test_glv_plain_kernel_edge_operands(case):
+    """The plain #4 on the edges the CUDA kernel must match: P1 or P2 the
+    identity (0, 1, 0) or (0, Z, 0) (its table is all identities), every
+    digit +8 or -8 (the table's last entry, y negated or not), magnitude 0
+    with the sign bit set in window 0.  k1*P1 + k2*P2 against python ints
+    from the digits themselves."""
+    rng = np.random.default_rng({"identity-p1": 1, "identity-p2": 2,
+                                 "magnitude-8": 3}[case])
+    lanes = 8
+    mag = rng.integers(0, 9, (33, lanes))
+    d1 = mag | (rng.integers(0, 2, (33, lanes)) << 4)
+    d2 = rng.integers(0, 9, (33, lanes)) | (rng.integers(0, 2, (33, lanes))
+                                            << 4)
+    d1[0, :2] = 16                          # magnitude 0, sign bit set
+    if case == "magnitude-8":
+        d1[:, 2:5] = 8
+        d2[:, 3:6] = 8 | 16
+    a1 = [_BASE_POINTS[i] for i in rng.integers(0, 6, lanes)]
+    a2 = [_BASE_POINTS[i] for i in rng.integers(0, 6, lanes)]
+    z1, z2 = _zs(lanes, rng), _zs(lanes, rng)
+    if case == "identity-p1":
+        a1[:4] = [None] * 4
+        z1[:2] = [1, 1]
+    if case == "identity-p2":
+        a2[:4] = [None] * 4
+    p1 = _torch_point(_point_np(_proj(a1, z1)))
+    p2 = _torch_point(_point_np(_proj(a2, z2)))
+    t1, t2 = (torch.as_tensor(d, dtype=torch.int32) for d in (d1, d2))
+    K.reset_counts()
+    got = K.glv_windowed_mult_signed_from_points(t1, t2, tuple(p1),
+                                                 tuple(p2))
+    assert K.PLAIN_CALLS["glv_windowed_mult_signed_from_points"] == 1
+    want = []
+    for i in range(lanes):
+        k1, k2 = _digit_value(d1[:, i]), _digit_value(d2[:, i])
+        q1 = hc.mul(k1 % N, a1[i]) if a1[i] is not None else None
+        q2 = hc.mul(k2 % N, a2[i]) if a2[i] is not None else None
+        want.append(hc.add(q1, q2))
+    assert _affine(got) == want
+
+
 def test_glv_scalar_mult_against_python_ints():
     ks = GLV_KS[:16]
     p, want = _glv_lanes(ks, 8)
