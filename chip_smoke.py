@@ -17,7 +17,9 @@ the run with a non-zero exit code:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the fourteen kernels from `ops/cuda/csrc` (one nvcc per
    source, in parallel) and the native host library (g++), and prints the
-   seconds and each kernel's registers, stack and spills;
+   seconds, each kernel's registers, stack and spills, the IMMA (int8
+   tensor-core) instructions in `k_base_scan`'s SASS (`cuobjdump -sass`;
+   none fails the run) and the fixed-base kernels' resident blocks an SM;
 3. kernels: each kernel against its plain PyTorch version on the card at
    65,536 lanes (edge values included), bit-exact, with its device time
    (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
@@ -26,7 +28,12 @@ the run with a non-zero exit code:
    kernels (`point_double4`, `point_add_mixed`, `point_lookup_add`, the
    unsigned GLV #7 and the lane-table GLV #9, whose affine result must
    equal #7's and #4's), and the fixed-base kernels at their other shapes
-   (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); the
+   (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); #5 and #6
+   at every width with edge lanes, each the same digit in every window
+   (the all-zero scalar, magnitude 0 with the sign bit set, magnitude 1,
+   magnitude E and -E), and #6's bound recounted for its int8 select
+   beside the masked scan it replaced, and its device time at all-zero,
+   all-E and random digits (a constant-time witness, printed); the
    signed GLV #4 with edge lanes (all-zero digit windows, magnitude 0 with
    the sign bit set, magnitude 8 of either sign, the identity as P1 or
    P2); `mod_pow2k` also at the shapes the paths launch it (the square-root
@@ -102,9 +109,12 @@ SEED = 20261016
 # Published H100 SXM figures used for the bounds (NVIDIA data sheet; CUDA
 # C++ Programming Guide, arithmetic instruction throughput for compute
 # capability 9.0: 64 results per clock per SM for 32-bit integer
-# multiply-add).  The SM count and maximum SM clock are read from the card.
+# multiply-add; H100 architecture whitepaper: 4 tensor cores an SM, each
+# 1,024 dense int8 multiply-adds a clock).  The SM count and maximum SM
+# clock are read from the card.
 HBM_BYTES_PER_S = 3.35e12
 INT_MAD_PER_CLOCK_PER_SM = 64
+INT8_MAC_PER_CLOCK_PER_SM = 4096
 
 # 32 x 32 -> 64-bit products per lane, counted from csrc/field.cuh and
 # csrc/point.cuh (a product by a constant word 1 compiles to no multiply):
@@ -294,7 +304,8 @@ def phase_device():
     say(f"device: {torch.cuda.get_device_name(0)}, "
         f"{props.multi_processor_count} SMs, max SM clock {sm_clock_mhz} MHz,"
         f" torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"peak 32-bit integer multiply-add {int_rate:.4g}/s")
+        f"peak 32-bit integer multiply-add {int_rate:.4g}/s, "
+        f"dense int8 MMA {int8_rate(int_rate):.4g} operations/s")
     return int_rate
 
 
@@ -325,6 +336,18 @@ def phase_build():
             f"registers, {rep.get('stack')} bytes stack, "
             f"{rep.get('spill_stores')} bytes spill stores, "
             f"{rep.get('spill_loads')} bytes spill loads")
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    imma = {fn: sum("IMMA" in line for line in body.splitlines())
+            for fn, body in build.sass("base").items()}
+    scan = sum(n for fn, n in imma.items() if "k_base_scan" in fn)
+    say(f"build: IMMA instructions in base.cu's SASS {imma}; "
+        f"k_base_scan {scan}")
+    if not scan:
+        fail("k_base_scan's SASS holds no IMMA instruction: its select is "
+             "not on the tensor cores")
+    say(f"build: resident blocks of 128 threads an SM: k_base_scan "
+        f"{K.base_blocks_per_sm(False)}, k_base_final "
+        f"{K.base_blocks_per_sm(True)}")
 
 
 # ---------------------------------------------------------------------------
@@ -498,12 +521,29 @@ def random_planes(rng, lanes, modulus, device):
     return torch.as_tensor(arr, dtype=torch.int32, device=device)
 
 
-def bound_ms(int_rate, products_total, bytes_total):
-    """(least milliseconds, what sets it): the larger of the bytes over the
-    HBM rate and the 32-bit products over the integer rate."""
-    t_ops = products_total / int_rate * 1e3
-    t_bytes = bytes_total / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def int8_rate(int_rate):
+    """Dense int8 MMA operations a second (two a multiply-add) at the SM
+    count and clock that set `int_rate`."""
+    return int_rate / INT_MAD_PER_CLOCK_PER_SM * INT8_MAC_PER_CLOCK_PER_SM * 2
+
+
+def bound_terms(int_rate, products_total, bytes_total, mma_ops=0):
+    """Milliseconds of each term of the bound: the 32-bit products over
+    the integer multiply-add rate, the int8 MMA operations over the dense
+    int8 tensor rate (the two units run side by side), the bytes over the
+    HBM rate."""
+    return {"products": products_total / int_rate * 1e3,
+            "int8_mma": mma_ops / int8_rate(int_rate) * 1e3,
+            "bytes": bytes_total / HBM_BYTES_PER_S * 1e3}
+
+
+def bound_ms(int_rate, products_total, bytes_total, mma_ops=0):
+    """(least milliseconds, what sets it): the largest term of
+    `bound_terms`."""
+    terms = bound_terms(int_rate, products_total, bytes_total, mma_ops)
+    t_ops = max(terms["products"], terms["int8_mma"])
+    return (t_ops, "operations") if t_ops >= terms["bytes"] \
+        else (terms["bytes"], "bytes")
 
 
 def random_z(xs, ys, rng, device):
@@ -523,6 +563,62 @@ def max_abs_err(got, want) -> int:
     return max(errs)
 
 
+BASE_EDGE_LANE = 24     # the fixed-base kernels' edge lanes start here
+
+
+def base_edge_lanes(digits, bits, n_entries, signed):
+    """Write the fixed-base kernels' edge lanes into digits [W, B] in place,
+    each the same digit in every window, from BASE_EDGE_LANE on: the
+    all-zero scalar, magnitude 0 with the sign bit set (signed), magnitude
+    1, magnitude E (the last entry) and, signed, magnitude E with the sign
+    bit set.  Returns their scalars mod n."""
+    from secp256k1_tpu_torch.ops import scalar as sc
+    cols = [(0, 0), (1, 1), (n_entries, n_entries)]
+    if signed:
+        cols[1:1] = [(1 << 16, 0)]
+        cols.append((n_entries | 1 << 16, -n_entries))
+    weight = sum(1 << (bits * i) for i in range(digits.shape[0]))
+    for i, (d, _) in enumerate(cols):
+        digits[:, BASE_EDGE_LANE + i] = d
+    return [v * weight % sc.N for _, v in cols]
+
+
+def affine_lanes(planes, lo, n, hc):
+    """Lanes lo .. lo + n - 1 of (X, Y, Z) planes as python-int affine
+    points (None for Z = 0)."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    xs, ys, zs = (lb.limbs_to_int_batch(c[:, lo:lo + n]) for c in planes)
+    return [None if z == 0 else
+            (x * pow(z, -1, hc.P) % hc.P, y * pow(z, -1, hc.P) % hc.P)
+            for x, y, z in zip(xs, ys, zs)]
+
+
+def base_scan_work(int_rate, digits, table, signed, label):
+    """(32-bit products, int8 MMA operations, bytes) of k_base_scan on
+    these digits: the mixed adds of the nonzero digits past window 0; the
+    select's 2 x E_pad x 64 a lane a window; the digits, the three outputs
+    and the byte table.  Prints each term of the bound and, beside them,
+    the yardstick of the masked scan it replaced: one LOP3 a word an entry
+    a window at the integer rate."""
+    from secp256k1_tpu_torch.ops import table as tbl
+    n_windows, n_entries = table.shape[:2]
+    lanes = digits.shape[1]
+    e_pad = tbl.packed_of(table, "bytes").shape[2]
+    mag = digits & 0xFFFF if signed else digits
+    products = int((mag[1:] != 0).sum()) * PT_ADD_MIXED
+    mma = 2 * lanes * e_pad * 64 * n_windows
+    nbytes = (n_windows * 4 + 3 * 16 * 4) * lanes + n_windows * 64 * e_pad
+    selects = n_windows * n_entries * 16 * lanes
+    terms = bound_terms(int_rate, products, nbytes, mma)
+    say(f"kernel {label}: {n_windows} windows of {n_entries} entries "
+        f"({e_pad} padded): {products} 32-bit products "
+        f"{terms['products']:.4f} ms, {mma} int8 MMA operations "
+        f"{terms['int8_mma']:.4f} ms, {nbytes} bytes {terms['bytes']:.4f} "
+        f"ms (the bound takes the largest); the masked scan it replaced, "
+        f"{selects} LOP3 selects, {selects / int_rate * 1e3:.4f} ms")
+    return products, mma, nbytes
+
+
 def kernel_checks(int_rate, curve, rng, device):
     from secp256k1_tpu_torch.ops import field as fe
     from secp256k1_tpu_torch.ops import glv
@@ -537,9 +633,10 @@ def kernel_checks(int_rate, curve, rng, device):
     res = {}
 
     def record(name, err, call, plain_call, reps, plain_reps,
-               products_total, bytes_total, label):
+               products_total, bytes_total, label, mma_ops=0):
         timed_check(int_rate, res, name, label, err, call, plain_call, reps,
-                    plain_reps, products_total, bytes_total)
+                    plain_reps, products_total, bytes_total,
+                    mma_ops=mma_ops)
 
     # Field kernels, p and n.  The JSON keeps the first (mod p) time.
     k_long = max(max(chain_pow2k(e))
@@ -650,10 +747,12 @@ def kernel_checks(int_rate, curve, rng, device):
     check_points(got, u2q, hc, "glv")
     u2p = pt.Point(*got)
 
-    # Fixed-base kernel: u1*G + u2*Q with the GLV result as Q.
+    # Fixed-base kernel: u1*G + u2*Q with the GLV result as Q, edge lanes
+    # from BASE_EDGE_LANE on (Q there the GLV result of those lanes).
     u1 = random_planes(rng, lanes, sc.N, device)
     digits = tbl._signed_digits(u1).contiguous()
     table = tbl.base_table(device)
+    edge_ks = base_edge_lanes(digits, 8, table.shape[1], True)
     name = "base_windowed_add_final"
     got = K.base_windowed_add_final(digits, table, *u2p)
     want = K.base_windowed_add_final_plain(digits, table, *u2p)
@@ -663,35 +762,53 @@ def kernel_checks(int_rate, curve, rng, device):
            lambda: K.base_windowed_add_final_plain(digits, table, *u2p),
            10, 2, mixed * PT_ADD_MIXED + lanes * PT_ADD,
            (digits.shape[0] * 4 + 6 * lane_bytes) * lanes
-           + table.numel() * 4, "base")
+           + table.numel() * 2, "base")
     u1_ints = lb.limbs_to_int_batch(u1[:, :24])
     check_points(got, [hc.add(curve.g_mul(k), u2q[i])
                        for i, k in enumerate(u1_ints)], hc, "base")
+    q_edge = affine_lanes(u2p, BASE_EDGE_LANE, len(edge_ks), hc)
+    check_points([c[:, BASE_EDGE_LANE:] for c in got],
+                 [hc.add(curve.g_mul(k), q) for k, q in zip(edge_ks, q_edge)],
+                 hc, "base edge lanes")
 
     # Constant-time fixed-base kernel: k*G from secret digits.  Beside the
     # edge values: every byte 0x80 (the recoding carry runs through every
-    # window) and two scalars with zero windows.
+    # window), two scalars with zero windows, and the edge lanes.
     ks = random_planes(rng, lanes, sc.N, device)
     extra = [int("80" * 32, 16) % sc.N, (1 << 200) | 5,
              int("01" + "00" * 30 + "01", 16)]
     ks[:, 7:7 + len(extra)] = torch.as_tensor(
         lb.int_to_limbs_batch(extra), dtype=torch.int32, device=device)
     digits = tbl._signed_digits(ks).contiguous()
+    edge_ks = base_edge_lanes(digits, 8, table.shape[1], True)
     name = "base_windowed_add"
     got = K.base_windowed_add(digits, table)
     want = K.base_windowed_add_plain(digits, table)
-    products = int(((digits[1:] & 0xFFFF) != 0).sum()) * PT_ADD_MIXED
-    selects = digits.shape[0] * table.shape[1] * 16 * lanes
-    say(f"kernel base scan: {products} 32-bit products, {selects} masked "
-        f"selects (the bound takes the larger)")
+    products, mma, nbytes = base_scan_work(int_rate, digits, table, True,
+                                           "base scan")
     record(name, max_abs_err(got, want),
            lambda: K.base_windowed_add(digits, table),
            lambda: K.base_windowed_add_plain(digits, table), 10, 1,
-           max(products, selects),
-           (digits.shape[0] * 4 + 3 * lane_bytes) * lanes
-           + table.numel() * 4, "base scan")
+           products, nbytes, "base scan", mma)
     check_points(got, [curve.g_mul(k) for k in
                        lb.limbs_to_int_batch(ks[:, :24])], hc, "base scan")
+    check_points([c[:, BASE_EDGE_LANE:] for c in got],
+                 [curve.g_mul(k) for k in edge_ks], hc,
+                 "base scan edge lanes")
+
+    # Constant-time witness, printed and not gated: the device time at
+    # all-zero digits, at magnitude E in every window and at the digits
+    # above.
+    witness = {}
+    for tag, d in (("all-zero", torch.zeros_like(digits)),
+                   ("all-E", torch.full_like(digits, table.shape[1])),
+                   ("random", digits)):
+        witness[tag] = kernel_device_ms(
+            lambda d=d: K.base_windowed_add(d, table), 10,
+            KERNEL_SYMBOL[name])[0]
+    res[name]["constant_time_ms"] = witness
+    say("kernel base scan constant-time witness (device ms, cold L2): "
+        + ", ".join(f"{tag} {t:.4f}" for tag, t in witness.items()))
 
     # Point kernels, random Z on both operands: lanes 0-7 P == Q, 8-15
     # P == -Q, 16-19 P the identity (0, Z, 0), 20-23 Q the identity.
@@ -746,11 +863,13 @@ def chain_pow2k(e: int) -> list:
 
 
 def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
-                plain_reps, products_total, bytes_total, keep=True):
+                plain_reps, products_total, bytes_total, keep=True,
+                mma_ops=0):
     """Fail unless err is 0, then time the kernel (profiler, cold L2), its
     wrapper and its plain version (CUDA events) and print them with the
-    bound.  keep: record these numbers as the kernel's row (else only the
-    error counts)."""
+    bound (mma_ops: int8 MMA operations beside the products).  keep:
+    record these numbers as the kernel's row (else only the error
+    counts)."""
     if err != 0:
         fail(f"{label}: kernel differs from its plain version, max abs err "
              f"{err}")
@@ -758,7 +877,7 @@ def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
     wrapper_ms = cuda_ms(call, reps)
     plain_ms = cuda_ms(plain_call, plain_reps,
                        warmup=1 if plain_reps > 1 else 0)
-    b_ms, b_by = bound_ms(int_rate, products_total, bytes_total)
+    b_ms, b_by = bound_ms(int_rate, products_total, bytes_total, mma_ops)
     say(f"kernel {label}: bit-exact at {LANES} lanes, {ms:.4f} ms device "
         f"with a cold L2 (mean of {seen} of {reps} launches; wrapper call "
         f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms), bound {b_ms:.4f} "
@@ -807,10 +926,10 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     pts, qx, qy = tiled_points(curve, rng, lanes, device, n_pts)
 
     def check(name, label, got, plain, call, plain_call, reps, plain_reps,
-              products, nbytes, keep=True):
+              products, nbytes, keep=True, mma_ops=0):
         timed_check(int_rate, res, name, label, max_abs_err(got, plain),
                     call, plain_call, reps, plain_reps, products, nbytes,
-                    keep)
+                    keep, mma_ops)
 
     # point_double4 and point_add_mixed on random-Z points: lanes 0-7
     # P == Q, 8-15 P == -Q, 16-19 P the identity (0, Z, 0).
@@ -927,7 +1046,7 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
         f"and #4's on the {lanes - int(edge.sum())} lanes of unchanged "
         f"digits; projective X, Y, Z differ as the schedules do")
 
-    # The widened fixed-base kernels at their new shapes.
+    # The fixed-base kernels at their other shapes, with the edge lanes.
     ks = random_planes(rng, lanes, sc.N, device)
     k_ints = lb.limbs_to_int_batch(ks[:, :16])
     want_kg = [curve.g_mul(v) for v in k_ints]
@@ -936,23 +1055,21 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
         digits = (tbl._signed_digits(ks, w) if signed_digits
                   else tbl._raw_digits(ks, 8, 32).to(torch.int32))
         digits = digits.contiguous()
-        mag = digits & 0xFFFF if signed_digits else digits
+        edge_ks = base_edge_lanes(digits, w, table.shape[1], signed_digits)
+        want_edge = [curve.g_mul(k) for k in edge_ks]
         label = f"base scan {'signed' if signed_digits else 'unsigned'} w={w}"
         got = K.base_windowed_add(digits, table, signed_digits)
-        products = int((mag[1:] != 0).sum()) * PT_ADD_MIXED
-        selects = digits.shape[0] * table.shape[1] * 16 * lanes
-        say(f"kernel {label}: {digits.shape[0]} windows of {table.shape[1]}"
-            f" entries, {products} 32-bit products, {selects} masked "
-            f"selects")
+        products, mma, nbytes = base_scan_work(
+            int_rate, digits, table, signed_digits, label)
         check("base_windowed_add", label, got,
               K.base_windowed_add_plain(digits, table, signed_digits),
               lambda: K.base_windowed_add(digits, table, signed_digits),
               lambda: K.base_windowed_add_plain(digits, table,
                                                 signed_digits),
-              10, 1, max(products, selects),
-              (digits.shape[0] * 4 + 3 * lane_bytes) * lanes
-              + table.numel() * 4, keep=False)
+              10, 1, products, nbytes, keep=False, mma_ops=mma)
         check_points(got, want_kg, hc, label)
+        check_points([c[:, BASE_EDGE_LANE:] for c in got], want_edge, hc,
+                     f"{label} edge lanes")
         if not signed_digits:
             continue
         label = f"base final w={w}"
@@ -963,9 +1080,13 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
               lambda: K.base_windowed_add_final_plain(digits, table, *p1),
               10, 1, products + lanes * PT_ADD,
               (digits.shape[0] * 4 + 6 * lane_bytes) * lanes
-              + table.numel() * 4, keep=False)
+              + table.numel() * 2, keep=False)
         check_points(got, [hc.add(g, x) for g, x in zip(want_kg, a[:16])],
                      hc, label)
+        q_edge = affine_lanes(p1, BASE_EDGE_LANE, len(edge_ks), hc)
+        check_points([c[:, BASE_EDGE_LANE:] for c in got],
+                     [hc.add(g, q) for g, q in zip(want_edge, q_edge)], hc,
+                     f"{label} edge lanes")
 
 
 class MsmPoints:

@@ -52,16 +52,16 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, source_hash())
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(home, "bin", name)
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME)")
 
 
@@ -78,7 +78,7 @@ def build_all() -> dict:
         if os.path.exists(lib):
             continue
         tmp = lib + f".tmp{os.getpid()}"
-        cmd = [_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + [
+        cmd = [_tool("nvcc")] + ARCH_FLAGS + NVCC_FLAGS + [
             "-I", CSRC, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -109,6 +109,19 @@ def library(name: str) -> ctypes.CDLL:
                 _LIBS[n] = ctypes.CDLL(path)
         lib = _LIBS[name]
     return lib
+
+
+def sass(name: str) -> dict:
+    """{mangled kernel name: its SASS} of the built lib<name>.so, from
+    `cuobjdump -sass`."""
+    path = os.path.join(build_dir(), f"lib{name}.so")
+    out = subprocess.run([_tool("cuobjdump"), "-sass", path],
+                         capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for part in out.split("Function : ")[1:]:
+        fn, _, body = part.partition("\n")
+        funcs[fn.strip()] = body
+    return funcs
 
 
 _PTXAS_FN = re.compile(r"Compiling entry function '([^']+)'")

@@ -19,7 +19,8 @@
 // non-Pallas path orders the points by their digits (ops/msm.py
 // _bucket_accumulate).  The TPU kernel's masked pass over every bucket
 // exists only because Mosaic has no scatter.  The secret-digit kernels
-// (GLV, k_base_scan, point_lookup_add) keep their masked scans.  A
+// keep reading every entry: GLV and point_lookup_add by masked scans,
+// k_base_scan by a one-hot product on the tensor cores.  A
 // magnitude of 0 or above nb is discarded by a bounds check before any
 // bucket is read: no address outside the slot's nb buckets is formed.
 //

@@ -489,12 +489,25 @@ def _check_table(name: str, table: torch.Tensor, w: int) -> None:
                          f"{tuple(table.shape)}")
 
 
+def _check_packed(name: str, t: torch.Tensor, dtype, shape,
+                  device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous() \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a contiguous, 16-byte aligned "
+                         f"{dtype} {tuple(shape)} packed table on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def base_windowed_add(digits, table, signed_digits: bool = True):
     """k*G from secret digits, one launch.  Replaces Pallas
-    `base_windowed_add` (kernels.py:1041) in both digit modes; each window's
-    entry is selected by a masked scan over the whole table window, staged
-    in shared memory in chunks of 128 entries, so no address or trip count
-    depends on a digit.  Any entry count from 1 to 2^14."""
+    `base_windowed_add` (kernels.py:1041) in both digit modes.  The kernel
+    reads the table packed as uint8 [W, 64, E_pad] (`table.packed_of`, the
+    cached copy for a `table.base_table`) and selects each window's entry
+    by an int8 tensor-core product of one-hot rows with every entry, so no
+    address or trip count depends on a digit.  Any entry count from 1 to
+    2^14."""
+    from .. import table as tbl
     name = "base_windowed_add"
     if _on_cpu(digits, table):
         PLAIN_CALLS[name] += 1
@@ -504,19 +517,25 @@ def base_windowed_add(digits, table, signed_digits: bool = True):
     _check_table(name, table, w)
     n_entries = table.shape[1]
     if not 1 <= n_entries <= 1 << 14:
-        raise ValueError(f"{name}: the kernel scans 1 to 2^14 entries a "
-                         f"window, got {n_entries}")
+        raise ValueError(f"{name}: the kernel selects from 1 to 2^14 "
+                         f"entries a window, got {n_entries}")
+    table_bytes = tbl.packed_of(table, "bytes")
+    e_pad = table_bytes.shape[2]
+    _check_packed(name, table_bytes, torch.uint8, (w, 64, e_pad),
+                  digits.device)
     outs = [torch.empty((16, lanes), dtype=torch.int32, device=digits.device)
             for _ in range(3)]
-    _launch(name, "base", "base_windowed_add", [digits, table, *outs],
-            [lanes, w, n_entries, int(signed_digits)])
+    _launch(name, "base", "base_windowed_add", [digits, table_bytes, *outs],
+            [lanes, w, e_pad, int(signed_digits)])
     return tuple(outs)
 
 
 def base_windowed_add_final(digits, table, qx, qy, qz):
     """u1*G + Q, one launch.  Replaces Pallas `base_windowed_add_final`
-    (kernels.py:1070); the per-window gather from the G table happens in
-    the kernel."""
+    (kernels.py:1070).  The kernel gathers each window's entry (public
+    digits) a window ahead from the table packed as int32 [W, E, 16] words
+    (`table.packed_of`, the cached copy for a `table.base_table`)."""
+    from .. import table as tbl
     if _on_cpu(digits, table, qx, qy, qz):
         PLAIN_CALLS["base_windowed_add_final"] += 1
         return base_windowed_add_final_plain(digits, table, qx, qy, qz)
@@ -526,10 +545,28 @@ def base_windowed_add_final(digits, table, qx, qy, qz):
     _check_table(name, table, w)
     for t in (qx, qy, qz):
         _check(name, t, 16, lanes)
+    table_words = tbl.packed_of(table, "words")
+    _check_packed(name, table_words, torch.int32, (w, table.shape[1], 16),
+                  digits.device)
     outs = [torch.empty_like(qx) for _ in range(3)]
     _launch(name, "base", "base_windowed_add_final",
-            [digits, table, qx, qy, qz, *outs], [lanes, w, table.shape[1]])
+            [digits, table_words, qx, qy, qz, *outs],
+            [lanes, w, table.shape[1]])
     return tuple(outs)
+
+
+def base_blocks_per_sm(final: bool) -> int:
+    """Resident blocks of 128 threads an SM of `k_base_final` (final) or
+    `k_base_scan`, as the CUDA occupancy calculator gives them (the
+    kernels are built first where needed)."""
+    fn = build.library("base").base_blocks_per_sm
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    blocks = fn(int(final))
+    if blocks < 0:
+        raise RuntimeError("base_blocks_per_sm: the CUDA occupancy query "
+                           "failed")
+    return blocks
 
 
 def _lanewise(name: str, lib_name: str, plain, planes, extra=(),

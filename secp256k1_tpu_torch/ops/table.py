@@ -16,11 +16,13 @@ under its own switches:
 Where the JAX package's fused kernels would fit their VMEM budget
 (`_fused_base_ok`: signed w >= 6, unsigned w = 8) one launch of a
 fixed-base kernel does the whole sum on CUDA: `base_windowed_add` (secret
-digits, a masked scan of every entry) or `base_windowed_add_final` (public
-digits, a gather, then + Q).  Elsewhere (signed w = 4, 5, unsigned w = 4)
-the scan path runs a window at a time: a masked select over the window's
-entries, a `point_add_mixed` launch, a select on digit 0.  The TPU's bf16
-one-hot selection planes are not ported.  Also the per-lane tables of
+digits, each window's entry selected by an int8 tensor-core product of
+one-hot rows with every entry, as the TPU's bf16 one-hot matmul selects it)
+or `base_windowed_add_final` (public digits, a gather, then + Q).  Each
+reads a packed copy of the G table made once a key (`base_table_bytes`,
+`base_table_words`).  Elsewhere (signed w = 4, 5, unsigned w = 4) the scan
+path runs a window at a time: a masked select over the window's entries, a
+`point_add_mixed` launch, a select on digit 0.  Also the per-lane tables of
 Straus's MSM and the not-mega GLV (`build_lane_table`,
 `lookup_lane_table`).
 """
@@ -152,7 +154,68 @@ def base_table(device, window_bits: int = BASE_WINDOW_BITS,
                else gen_base_tables_np(window_bits))
         t = torch.as_tensor(arr, dtype=lb.DTYPE, device=device).contiguous()
         _TABLES[key] = t
+        _PACKED[id(t)] = {}
     return t
+
+
+# The fixed-base kernels' packed copies of a G table, made once a key:
+# 32-bit words for base_windowed_add_final's per-lane gather, bytes for
+# base_windowed_add's tensor-core one-hot select.
+ENTRY_PAD = 32               # the select's entry count rounds up to this
+
+
+def pack_words(table: torch.Tensor) -> torch.Tensor:
+    """int32 [W, E, 2, 16] limbs -> int32 [W, E, 16] little-endian 32-bit
+    words (x words 0-7, then y words 0-7): 64 bytes an entry."""
+    w, e = table.shape[:2]
+    pairs = table.to(torch.int64).reshape(w, e, 16, 2)
+    words = pairs[..., 0] | (pairs[..., 1] << 16)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.to(torch.int32).contiguous()
+
+
+def pack_bytes(table: torch.Tensor) -> torch.Tensor:
+    """int32 [W, E, 2, 16] limbs -> uint8 [W, 64, E_pad], byte-major:
+    [w, j, e] is byte j of entry e's 64-byte little-endian (x, y), and
+    E_pad is E rounded up to a multiple of ENTRY_PAD, the entries past E
+    zero.  Four consecutive entries of one byte column are one 32-bit
+    word, the B operand of the kernel's int8 MMA."""
+    w, e = table.shape[:2]
+    limbs = table.to(torch.int64).reshape(w, e, 32)
+    by = torch.stack([limbs & 0xFF, limbs >> 8], -1).reshape(w, e, 64)
+    e_pad = -(-e // ENTRY_PAD) * ENTRY_PAD
+    out = torch.zeros((w, 64, e_pad), dtype=torch.uint8,
+                      device=table.device)
+    out[:, :, :e] = by.transpose(1, 2).to(torch.uint8)
+    return out
+
+
+_PACKED: dict = {}   # id of a base_table table -> {form: packed copy}
+
+
+def packed_of(table: torch.Tensor, form: str) -> torch.Tensor:
+    """The packed `form` ("words" or "bytes") of an int32 G table: made
+    once and kept where `table` is one of `base_table`'s (which live as
+    long as the process, so their ids stay theirs), else packed here."""
+    pack = pack_words if form == "words" else pack_bytes
+    forms = _PACKED.get(id(table))
+    if forms is None:
+        return pack(table)
+    if form not in forms:
+        forms[form] = pack(table)
+    return forms[form]
+
+
+def base_table_words(device, window_bits: int = BASE_WINDOW_BITS,
+                     signed: bool = True) -> torch.Tensor:
+    """`pack_words` of `base_table(device, window_bits, signed)`."""
+    return packed_of(base_table(device, window_bits, signed), "words")
+
+
+def base_table_bytes(device, window_bits: int = BASE_WINDOW_BITS,
+                     signed: bool = True) -> torch.Tensor:
+    """`pack_bytes` of `base_table(device, window_bits, signed)`."""
+    return packed_of(base_table(device, window_bits, signed), "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +357,8 @@ def scalar_base_mult(k: torch.Tensor,
     signed windows of `base_window()` bits; otherwise unsigned windows of
     window_bits (4 or 8) with 2^w - 1 entries.  On the fused path one
     launch of the constant-time fixed-base kernel, which selects each
-    window's entry by a masked scan of the whole window; else the scan
-    path."""
+    window's entry by a one-hot product with every entry of the window;
+    else the scan path."""
     if window_bits == 8 and _BASE_SIGNED:
         return _scalar_base_mult_signed(k, _BASE_WINDOW)
     table = base_table(k.device, window_bits, signed=False)

@@ -36,6 +36,7 @@ P, N = hc.P, hc.N
 HARNESS = r"""
 #include <vector>
 
+#include "base.cuh"
 #include "glv.cuh"
 #include "msm.cuh"
 
@@ -125,6 +126,39 @@ extern "C" void glv_lanes(int kind, const int* d1, const int* d2,
       glv_from_tables(d1, d2, p1x, p2x, ox, oy, oz, lanes, n_windows, lane);
   }
 }
+
+// The fixed-base kernels' window step lane by lane, each window's entry
+// gathered from the packed [W, E, 16] word table as k_base_final gathers
+// it; for k_base_scan (final_add 0) magnitude 0 selects (0, 0), as its
+// one-hot product does.  final_add: + Q at the end (k_base_final).
+extern "C" void base_lanes(const int* digits, const int* words,
+                           const int* qx, const int* qy, const int* qz,
+                           int* ox, int* oy, int* oz, int lanes,
+                           int n_windows, int n_entries, int signed_digits,
+                           int final_add) {
+  for (int lane = 0; lane < lanes; ++lane) {
+    Pt acc;
+    pt_set_identity(acc);
+    for (int w = 0; w < n_windows; ++w) {
+      const u32 d = (u32)digits[(size_t)w * lanes + lane];
+      const u32 mag = digit_mag(d, signed_digits);
+      const int* ent =
+          words + ((size_t)w * n_entries + gather_entry(mag, n_entries)) * 16;
+      u32 x[8], y[8];
+      for (int k = 0; k < 8; ++k) {
+        x[k] = mag || final_add ? (u32)ent[k] : 0u;
+        y[k] = mag || final_add ? (u32)ent[8 + k] : 0u;
+      }
+      base_step(acc, w, mag, digit_neg(d, signed_digits), x, y);
+    }
+    if (final_add) {
+      Pt q;
+      pt_load(qx, qy, qz, lanes, lane, q);
+      base_final_add(acc, q);
+    }
+    pt_store(ox, oy, oz, lanes, lane, acc);
+  }
+}
 """
 
 FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4, "mulw21": 5}
@@ -135,7 +169,8 @@ POINT_OPS = {"add": 0, "double": 1, "add_mixed": 2}
 def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
-    for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh"):
+    for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh",
+                 "base.cuh"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -398,5 +433,59 @@ def test_glv_lanes_match_the_plain_versions(host_lib, kind):
                        _ptr(a1), _ptr(a2),
                        *[None if o is None else _ptr(o) for o in ops],
                        *[_ptr(o) for o in outs], lanes, n_windows)
+    for got, w in zip(outs, want):
+        assert np.array_equal(got, w.numpy())
+
+
+# (window bits, signed, final add): k_base_scan at the signed widths 6, 8
+# and 12 and the unsigned width 8; k_base_final at the signed ones.
+BASE_CASES = [(8, True, False), (8, True, True), (6, True, False),
+              (6, True, True), (12, True, False), (12, True, True),
+              (8, False, False)]
+
+
+@pytest.mark.parametrize(
+    "bits,signed,final", BASE_CASES,
+    ids=[f"{'final' if f else 'scan'}-{'signed' if s else 'unsigned'}-w{b}"
+         for b, s, f in BASE_CASES])
+def test_base_window_step_matches_the_plain_versions(host_lib, bits, signed,
+                                                     final):
+    """The fixed-base kernels' window step (base.cuh) over every window of
+    the G table at 10 lanes, X, Y, Z word for word against
+    `base_windowed_add_plain` / `base_windowed_add_final_plain` (both the
+    loop of `_base_accumulate_plain`).  Edge lanes in every window: 0 the
+    all-zero scalar, 1 magnitude 0 with the sign bit set, 2 magnitude 1,
+    3 magnitude E (the last entry), 4 magnitude E with the sign bit set;
+    the rest random magnitudes and signs; Q the identity on lane 5."""
+    from secp256k1_tpu_torch.ops import table as tbl
+    rng = np.random.default_rng(bits * 10 + signed * 2 + final)
+    table = tbl.base_table("cpu", bits, signed)
+    n_windows, n_entries = table.shape[:2]
+    lanes = 10
+    mag = rng.integers(0, n_entries + 1, (n_windows, lanes))
+    mag[:, :2] = 0
+    mag[:, 2] = 1
+    mag[:, 3:5] = n_entries
+    sign = rng.integers(0, 2, (n_windows, lanes)) if signed \
+        else np.zeros((n_windows, lanes), np.int64)
+    sign[:, 0] = sign[:, 3] = 0
+    if signed:
+        sign[:, 1] = sign[:, 4] = 1
+    digits = torch.as_tensor(mag | (sign << 16), dtype=torch.int32)
+    q = _affine_planes(rng, lanes)
+    q[1][:, 5] = q[2][:, 5]                            # Q the identity
+    q[0][:, 5] = 0
+    q[2][:, 5] = 0
+    if final:
+        want = K.base_windowed_add_final_plain(digits, table, *q)
+    else:
+        want = K.base_windowed_add_plain(digits, table, signed)
+    words = _np32(tbl.base_table_words("cpu", bits, signed))
+    outs = [np.zeros((16, lanes), np.int32) for _ in range(3)]
+    d = _np32(digits)
+    qs = [_np32(c) for c in q]
+    host_lib.base_lanes(_ptr(d), _ptr(words), *[_ptr(c) for c in qs],
+                        *[_ptr(o) for o in outs], lanes, n_windows,
+                        n_entries, int(signed), int(final))
     for got, w in zip(outs, want):
         assert np.array_equal(got, w.numpy())
