@@ -15,11 +15,13 @@ JAX package) and runs, each phase printing its lines and any failure ending
 the run with a non-zero exit code:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the fourteen kernels from `ops/cuda/csrc` (one nvcc per
-   source, in parallel) and the native host library (g++), and prints the
+2. build: compiles the kernels from `ops/cuda/csrc` (one nvcc per source,
+   in parallel) and the native host library (g++), and prints the
    seconds, each kernel's registers, stack and spills, the IMMA (int8
    tensor-core) instructions in `k_base_scan`'s SASS (`cuobjdump -sass`;
-   none fails the run) and the fixed-base kernels' resident blocks an SM;
+   none fails the run) and the resident blocks an SM of the fixed-base
+   kernels, `k_point_add` (fewer than 4 fails) and the chain kernel (more
+   than 128 registers or a spill fails);
 3. kernels: each kernel against its plain PyTorch version on the card at
    65,536 lanes (edge values included), bit-exact, with its device time
    (profiler, cold L2) beside its wrapper's and its plain version's time (CUDA
@@ -36,19 +38,30 @@ the run with a non-zero exit code:
    all-E and random digits (a constant-time witness, printed); the
    signed GLV #4 with edge lanes (all-zero digit windows, magnitude 0 with
    the sign bit set, magnitude 8 of either sign, the identity as P1 or
-   P2); `mod_pow2k` also at the shapes the paths launch it (the square-root
-   chain at 65,536 lanes and the Fermat chain at the root of
-   `invert_batch`, one lane wide), each timed as the sum over its
-   launches; the bucket kernel bit-exact over every partial bucket at 2^14
-   points in its unsigned (w = 4) and signed (w = 5, 6) modes (every bucket
-   hit, magnitudes above the bucket count discarded), at a ragged N, with
-   3 slots, and at 2^20 points (w = 4, the MSM path's shape), where it is
-   timed;
+   P2); `point_add` also at the lane merge's widths (491,520 down to 960);
+   `mod_pow2k`, the chain kernel's one-step case, at k = 95, 5 and 2; the
+   chain kernel `mod_pow_chain` at 65,536 lanes for (p - 3)/4, p - 2 and
+   n - 2, at one lane for n - 2 and p - 2 (the root of `invert_batch`),
+   at a ragged width, with the edge values, also against python ints, and
+   its one-lane device time on 0, m - 1 and a random value (a
+   constant-time witness, printed); the bucket kernel bit-exact over
+   every partial bucket at 2^14 points in its unsigned (w = 4) and signed
+   (w = 5, 6) modes (every bucket hit, magnitudes above the bucket count
+   discarded), at a ragged N, with 3 slots, and at 2^20 points (w = 4, the
+   MSM path's shape), where it is timed; the fold kernel `msm_fold`,
+   projective X, Y, Z bit-exact at the window sums of that 2^20-point
+   MSM (W = 64, w = 4), of a sort + scan MSM (W = 32, w = 8) and of edge
+   cases (the identity, equal consecutive sums, a sum equal to or the
+   negation of the accumulator at its add), those also against python
+   ints;
 4. paths (65,536 lanes), each with the launch counts set to 0 just before
    it and read just after, failing if a kernel of that path was not
-   launched or a plain version was called:
+   launched, a plain version was called or `mod_pow2k` was launched (the
+   chains are each one `mod_pow_chain` launch now); each path prints its
+   chain launches by exponent and width and its one-lane launches:
    - verify: `verify_batch_arrays` with 33-byte keys and with 65-byte mixed
-     keys, every status against the expected one;
+     keys, every status against the expected one, two chain launches
+     (the square root and the root of `invert_batch`);
    - ECDSA sign: `sign_batch_arrays` (the 20 RFC 6979 vectors in the batch,
      byte-exact; 256 lanes against a python-int signer), every signature
      verified by `verify_batch_arrays`;
@@ -65,7 +78,8 @@ the run with a non-zero exit code:
      `set_base_window(4)` and `set_base_window(12)`: every status, and
      every signature equal to the default path's;
    - MSM: `multi_scalar_mult` on 2^20 points (the bucket path, w = 4), a
-     signed-window call (w = 5) on the same points, a sort + scan call
+     signed-window call (w = 5) on the same points (each one fold launch,
+     no `point_double` and no one-lane `point_add`), a sort + scan call
      (w = 8) on 2^14 points and `multi_scalar_mult_straus` on 64 points,
      each result against python ints: 256 points a_i * G of known a_i tiled
      over the lanes and a scalar k_j of its own on each lane, so the sum is
@@ -83,9 +97,11 @@ the run with a non-zero exit code:
    2^20-point `multi_scalar_mult` call (the last in a child process of
    this script, `--profile-msm`);
 6. a `kernels` JSON line (launches summed over the paths, and per path;
-   `mod_pow2k`'s launches by width and sum of k on each path;
-   `glv_windowed_mult`, which no path of either package calls, with 0),
-   then the `ok` JSON line last.
+   the chain kernel's launches by exponent and width on each path; the
+   one-lane `point_add` and `point_double` launches on each path;
+   `glv_windowed_mult`, which no path of either package calls, and
+   `mod_pow2k`, which no path launches now, with 0), then the `ok` JSON
+   line last.
 """
 
 from __future__ import annotations
@@ -144,12 +160,16 @@ KERNEL_META = {
     "point_double4": (f"{CSRC}/point.cu", f"{PALLAS}:1384"),
     "point_add_mixed": (f"{CSRC}/point.cu", f"{PALLAS}:1413"),
     "point_lookup_add": (f"{CSRC}/lookup.cu", f"{PALLAS}:1388"),
+    # The chain kernel replaces a chain of mod_pow2k (and mod_mul) calls;
+    # the fold 256 point_double (and 64 point_add) one-lane calls at w = 4.
+    "mod_pow_chain": (f"{CSRC}/modops.cu", f"{PALLAS}:784"),
+    "msm_fold": (f"{CSRC}/msm.cu", f"{PALLAS}:1380"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
     "mod_mul": "k_mod_mul",
     "mod_square": "k_mod_square",
-    "mod_pow2k": "k_mod_pow2k",
+    "mod_pow2k": "k_mod_pow_chain",
     "glv_windowed_mult_signed_from_points": "k_glv_signed",
     "base_windowed_add_final": "k_base_final",
     "base_windowed_add": "k_base_scan",
@@ -161,41 +181,66 @@ KERNEL_SYMBOL = {
     "point_double4": "k_point_dbl4",
     "point_add_mixed": "k_point_mixed",
     "point_lookup_add": "k_lookup_add",
+    "mod_pow_chain": "k_mod_pow_chain",
+    "msm_fold": "k_msm_fold",
 }
-# The kernels each path must launch.
-FIELD_KERNELS = ("mod_mul", "mod_square", "mod_pow2k")
-VERIFY_KERNELS = FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",
-                                  "base_windowed_add_final")
+# The kernels each path must launch.  mod_square is launched where a path
+# takes a square root (SEC1 decompression, recovery, lift_x).
+FIELD_KERNELS = ("mod_mul", "mod_pow_chain")
+SQRT_KERNELS = FIELD_KERNELS + ("mod_square",)
+GLV_KERNELS = SQRT_KERNELS + ("glv_windowed_mult_signed_from_points",)
+VERIFY_KERNELS = GLV_KERNELS + ("base_windowed_add_final",)
+# The verify core from affine keys (keyed verify, `_verify_impl`): no root.
+VERIFY_CORE_KERNELS = FIELD_KERNELS + (
+    "glv_windowed_mult_signed_from_points", "base_windowed_add_final")
 SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
 POINT_KERNELS = ("point_add", "point_double")
-MSM_KERNELS = ("msm_bucket_accumulate_all",) + POINT_KERNELS
+MSM_KERNELS = ("msm_bucket_accumulate_all", "point_add", "msm_fold")
+SCAN_KERNELS = ("point_add", "msm_fold")
 # ECDH under each GLV engine, and verify and sign under each fixed-base
 # switch: (label, switch setter arguments, kernels the path must launch).
 ECDH_ENGINES = (
-    ("default", {}, FIELD_KERNELS + ("glv_windowed_mult_signed_from_points",)),
+    ("default", {}, GLV_KERNELS),
     ("mega_signed=0", {"mega_signed": False},
-     FIELD_KERNELS + ("glv_windowed_mult_from_points",)),
+     SQRT_KERNELS + ("glv_windowed_mult_from_points",)),
     ("mega=0", {"mega": False},
-     FIELD_KERNELS + POINT_KERNELS + ("point_double4", "point_lookup_add")),
+     SQRT_KERNELS + POINT_KERNELS + ("point_double4", "point_lookup_add")),
 )
 BASE_SWITCHES = (
     ("base_signed=0", {"base_signed": False},
-     VERIFY_KERNELS[:4] + ("base_windowed_add", "point_add"),
-     SIGN_KERNELS),
+     GLV_KERNELS + ("base_windowed_add", "point_add"), SIGN_KERNELS),
     ("base_window=4", {"base_window": 4},
-     VERIFY_KERNELS[:4] + ("point_add_mixed", "point_add"),
+     GLV_KERNELS + ("point_add_mixed", "point_add"),
      FIELD_KERNELS + ("point_add_mixed",)),
     ("base_window=12", {"base_window": 12}, VERIFY_KERNELS, SIGN_KERNELS),
 )
-# The one kernel that no path of either package calls (the JAX package's
-# glv_windowed_mult, from prebuilt tables): driven by the kernel phase only.
-NO_PATH_KERNELS = ("glv_windowed_mult",)
+# The kernels that no path launches, driven by the kernel phase only: the
+# JAX package's glv_windowed_mult (from prebuilt tables), which no path of
+# either package calls, and mod_pow2k, whose chains are now each one
+# mod_pow_chain launch (the same CUDA kernel).
+NO_PATH_KERNELS = ("glv_windowed_mult", "mod_pow2k")
+# The exponents of the chain kernel on the paths: the square root of SEC1
+# decompression, and invert mod p and mod n (the root of invert_batch).
+P_FIELD = 2**256 - 2**32 - 977
+N_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+CHAIN_EXPONENTS = {"(p-3)/4": ((P_FIELD - 3) // 4, P_FIELD),
+                   "p-2": (P_FIELD - 2, P_FIELD),
+                   "n-2": (N_ORDER - 2, N_ORDER)}
+CHAIN_RAGGED = 4099
+# mod_pow2k, the chain kernel's one-step case, at the k it had on the paths
+# before each chain became one launch: their longest run of squarings, and
+# 5 and 2.
+POW2K_KS = (95, 5, 2)
+# point_add's widths in the 2^20-point MSM's lane merge (W nb = 960 rows).
+MERGE_WIDTHS = tuple(960 << j for j in range(9, -1, -1))
+CHAIN_LABEL = {e: label for label, (e, _) in CHAIN_EXPONENTS.items()}
 MSM_POINTS = 1 << 20             # the MSM path and the bucket kernel's time
 MSM_CHECK_POINTS = 1 << 14       # bucket kernel vs plain; sort + scan call
 MSM_STRAUS_POINTS = 64
 MSM_RATE_SIZES = (1 << 16, 1 << 20, 1 << 22)
 PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
-POW2K_SHAPES: dict = {}         # path label -> {width: [launches, sum of k]}
+CHAIN_SHAPES: dict = {}         # path label -> {"exponent at width": n}
+ONE_LANE: dict = {}             # path label -> {kernel: one-lane launches}
 CORE_ROUNDS = 5                 # --cores: rounds of medians of 7 a core
 PROFILE_ATTEMPTS = 5
 # Host seconds of quiet at each end of a profiler session, so that no
@@ -346,8 +391,20 @@ def phase_build():
         fail("k_base_scan's SASS holds no IMMA instruction: its select is "
              "not on the tensor cores")
     say(f"build: resident blocks of 128 threads an SM: k_base_scan "
-        f"{K.base_blocks_per_sm(False)}, k_base_final "
-        f"{K.base_blocks_per_sm(True)}")
+        f"{K.blocks_per_sm('base', 'base_blocks_per_sm', 0)}, k_base_final "
+        f"{K.blocks_per_sm('base', 'base_blocks_per_sm', 1)}, k_point_add "
+        f"{K.blocks_per_sm('point', 'point_add_blocks_per_sm')}, "
+        f"k_mod_pow_chain mod p "
+        f"{K.blocks_per_sm('modops', 'pow_chain_blocks_per_sm', 0)}, mod n "
+        f"{K.blocks_per_sm('modops', 'pow_chain_blocks_per_sm', 1)}")
+    report = build.ptxas_report()
+    for fn, rep in report.items():
+        if "k_mod_pow_chain" in fn and (rep.get("registers", 999) > 128
+                                        or rep.get("spill_stores")):
+            fail(f"{fn}: {rep}: the chain kernel must take at most 128 "
+                 "registers and spill nothing")
+    if K.blocks_per_sm("point", "point_add_blocks_per_sm") < 4:
+        fail("k_point_add: fewer than 4 blocks of 128 an SM")
 
 
 # ---------------------------------------------------------------------------
@@ -639,8 +696,6 @@ def kernel_checks(int_rate, curve, rng, device):
                     mma_ops=mma_ops)
 
     # Field kernels, p and n.  The JSON keeps the first (mod p) time.
-    k_long = max(max(chain_pow2k(e))
-                 for e in (fe.P - 2, sc.N - 2, (fe.P - 3) // 4))
 
     for modulus, tag, mul_c, sqr_c in ((fe.P, "p", MUL_P, SQR_P),
                                        (sc.N, "n", MUL_N, SQR_N)):
@@ -659,7 +714,7 @@ def kernel_checks(int_rate, curve, rng, device):
                lambda: K.mod_square_plain(a, modulus), 50, 5,
                sqr_c * lanes, 2 * lane_bytes * lanes,
                f"mod_square mod {tag}")
-        for k in sorted({k_long, 2, 5}, reverse=True):
+        for k in POW2K_KS:
             got = K.mod_pow2k(a, k, modulus)
             want = K.mod_pow2k_plain(a, k, modulus)
             record("mod_pow2k", max_abs_err([got], [want]),
@@ -667,44 +722,7 @@ def kernel_checks(int_rate, curve, rng, device):
                    lambda: K.mod_pow2k_plain(a, k, modulus), 20, 2,
                    k * sqr_c * lanes, 2 * lane_bytes * lanes,
                    f"mod_pow2k k={k} mod {tag}")
-
-    # mod_pow2k at the shapes the paths launch it: the square-root chain
-    # ((p - 3)/4, field.sqrt_ratio: key decompression) at LANES lanes and
-    # the Fermat chain (n - 2) at the root of invert_batch's product tree,
-    # one lane wide; each the sum over its launches at their own k.
-    chains = {}
-    for label, e, modulus, width, sqr_c in (
-            ("sqrt (p-3)/4", (fe.P - 3) // 4, fe.P, lanes, SQR_P),
-            ("invert_batch root n-2", sc.N - 2, sc.N, 1, SQR_N)):
-        ks = [k for k in chain_pow2k(e) if k >= 2]  # k = 1 is a mod_square
-        x = random_planes(rng, width, modulus, device)
-
-        def chain(ks=ks, x=x, modulus=modulus):
-            for k in ks:
-                x = K.mod_pow2k(x, k, modulus)
-            return x
-
-        def plain_chain(ks=ks, x=x, modulus=modulus):
-            for k in ks:
-                x = K.mod_pow2k_plain(x, k, modulus)
-            return x
-        err = max_abs_err([chain()], [plain_chain()])
-        if err:
-            fail(f"mod_pow2k {label}: kernel differs from its plain version")
-        per, seen = kernel_device_ms(chain, 5, KERNEL_SYMBOL["mod_pow2k"])
-        total = per * len(ks)
-        bound = sum(bound_ms(int_rate, k * sqr_c * width,
-                             2 * lane_bytes * width)[0] for k in ks)
-        plain_ms = cuda_ms(plain_chain, 1, warmup=0)
-        chains[label] = {"width": width, "launches": len(ks),
-                         "sum_k": sum(ks), "ms": total, "bound_ms": bound,
-                         "plain_ms": plain_ms}
-        say(f"kernel mod_pow2k {label}: {len(ks)} launches at {width} "
-            f"lanes, sum of k {sum(ks)} (k = {ks}): bit-exact, {total:.4f} "
-            f"ms device in all (mean {per:.4f} ms a launch over {seen} "
-            f"launches, cold L2 before each chain), bound {bound:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-    res["mod_pow2k"]["chains"] = chains
+    chain_checks(int_rate, res, rng, device)
 
     # GLV kernel at the operands verify gives it: u2 * Q with Q affine
     # (Z = 1), from tiled host points and random scalars.
@@ -835,41 +853,123 @@ def kernel_checks(int_rate, curve, rng, device):
            lambda: K.point_add_plain(*p1, *p2), 50, 5, PT_ADD * lanes,
            9 * lane_bytes * lanes, "point_add")
     check_points(got, [hc.add(x, y) for x, y in zip(a, b)], hc, "point_add")
+    # point_add at the widths of the MSM's lane merge (960 bucket rows
+    # times 512 down to 1 slot pairs at 2^20 points, w = 4), the operands
+    # the 65,536-lane ones tiled.
+    widths = {}
+    for width in MERGE_WIDTHS:
+        idx = torch.arange(width, device=device) % lanes
+        q1 = [c[:, idx].contiguous() for c in p1]
+        q2 = [c[:, idx].contiguous() for c in p2]
+        widths[width] = timed_check(
+            int_rate, res, "point_add", f"point_add at {width} lanes",
+            max_abs_err(K.point_add(*q1, *q2), K.point_add_plain(*q1, *q2)),
+            lambda: K.point_add(*q1, *q2),
+            lambda: K.point_add_plain(*q1, *q2), 20, 1, PT_ADD * width,
+            9 * lane_bytes * width, keep=False, lanes=width)
+    res["point_add"]["ms_by_width"] = widths
     got = K.point_double(*p1)
     record("point_double", max_abs_err(got, K.point_double_plain(*p1)),
            lambda: K.point_double(*p1), lambda: K.point_double_plain(*p1),
            50, 5, PT_DOUBLE * lanes, 6 * lane_bytes * lanes, "point_double")
     check_points(got, [hc.add(x, x) for x in a], hc, "point_double")
-    say(f"pow2k: the longest run of squarings in the inversion and square "
-        f"root chains is k={k_long}")
     return res
 
 
-def chain_pow2k(e: int) -> list:
-    """The k of each pow2k step of ModRing.pow_const_chain(x, e), in order
-    (k >= 2 is a mod_pow2k launch, k = 1 a mod_square)."""
-    from secp256k1_tpu_torch.ops import modring
-    ks = []
+def chain_work(e, modulus, lanes):
+    """(32-bit products, bytes) of x^e on `lanes` lanes by the chain
+    kernel: each step's squarings and multiply; one read and one write a
+    lane."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    sqr_c, mul_c = (SQR_P, MUL_P) if modulus == fe.P else (SQR_N, MUL_N)
+    steps = K.pow_chain_steps(e)
+    squarings = sum(k for _, k, _, _ in steps)
+    multiplies = sum(mul != K.POW_ACC for _, _, mul, _ in steps)
+    return (squarings * sqr_c + multiplies * mul_c) * lanes, 2 * 64 * lanes
 
-    class _Chain:
-        def mul(self, a, b):
-            return a
 
-        def pow2k(self, x, k):
-            ks.append(k)
-            return x
-    modring.ModRing.pow_const_chain(_Chain(), None, e)
-    return ks
+def chain_checks(int_rate, res, rng, device):
+    """The chain kernel against its plain version, bit-exact, and python
+    ints on a few lanes: at LANES lanes for each of CHAIN_EXPONENTS, at one
+    lane for n - 2 and p - 2 (the root of invert_batch), at a ragged width;
+    the edge values in every batch of more than 7 lanes (lanes 0-6), and
+    one-lane batches of 0, 1 and m - 1.  Each timed (profiler, cold L2)
+    beside its bound and its plain version; the one-lane times give one
+    thread's latency per step.  A constant-time witness: the one-lane n - 2
+    chain's device time on 0, on m - 1 and on a random value."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    name = "mod_pow_chain"
+    shapes = {}
+    cases = [(label, lanes) for label in CHAIN_EXPONENTS
+             for lanes in (LANES,)] + [("n-2", 1), ("p-2", 1),
+                                       ("n-2", CHAIN_RAGGED)]
+    for label, lanes in cases:
+        e, modulus = CHAIN_EXPONENTS[label]
+        x = random_planes(rng, max(lanes, 7), modulus, device)
+        x = x[:, -lanes:].contiguous() if lanes == 1 else x
+        got = K.mod_pow_chain(x, e, modulus)
+        err = max_abs_err([got], [K.mod_pow_chain_plain(x, e, modulus)])
+        n_int = min(lanes, 24)
+        if lb.limbs_to_int_batch(got[:, :n_int]) != [
+                pow(v, e, modulus)
+                for v in lb.limbs_to_int_batch(x[:, :n_int])]:
+            fail(f"mod_pow_chain {label} at {lanes} lanes: differs from "
+                 f"python ints")
+        products, nbytes = chain_work(e, modulus, lanes)
+        steps = K.pow_chain_steps(e)
+        tag = f"mod_pow_chain {label} at {lanes} lanes"
+        ms = timed_check(int_rate, res, name, tag, err,
+                         lambda: K.mod_pow_chain(x, e, modulus),
+                         lambda: K.mod_pow_chain_plain(x, e, modulus), 10, 1,
+                         products, nbytes, lanes=lanes)
+        squarings = sum(k for _, k, _, _ in steps)
+        multiplies = sum(mul != K.POW_ACC for _, _, mul, _ in steps)
+        shapes[f"{label} at {lanes}"] = {
+            "ms": ms, "bound_ms": bound_ms(int_rate, products, nbytes)[0],
+            "steps": len(steps), "squarings": squarings,
+            "multiplies": multiplies,
+            "us_per_step": ms * 1e3 / (squarings + multiplies)}
+        say(f"kernel {tag}: {len(steps)} steps, {squarings} squarings and "
+            f"{multiplies} multiplies, {ms:.4f} ms device, "
+            f"{ms * 1e3 / (squarings + multiplies):.4f} us a squaring or "
+            f"multiply; python ints agree on {n_int} lanes")
+    for label in ("n-2", "p-2"):
+        e, modulus = CHAIN_EXPONENTS[label]
+        for v in (0, 1, modulus - 1):
+            x = torch.as_tensor(lb.int_to_limbs_batch([v]), dtype=torch.int32,
+                                device=device)
+            got = lb.limbs_to_int_batch(K.mod_pow_chain(x, e, modulus))
+            if got != [pow(v, e, modulus)]:
+                fail(f"mod_pow_chain {label}: {v} at one lane gives {got}")
+    say("kernel mod_pow_chain: one-lane 0, 1 and m - 1 agree with python "
+        "ints for n - 2 and p - 2 (invert(0) = 0)")
+    e, modulus = CHAIN_EXPONENTS["n-2"]
+    witness = {}
+    for tag, v in (("zero", 0), ("m-1", modulus - 1),
+                   ("random", int.from_bytes(rng.bytes(32), "big")
+                    % modulus)):
+        x = torch.as_tensor(lb.int_to_limbs_batch([v]), dtype=torch.int32,
+                            device=device)
+        witness[tag] = kernel_device_ms(
+            lambda x=x: K.mod_pow_chain(x, e, modulus), 20,
+            KERNEL_SYMBOL[name])[0]
+    say("kernel mod_pow_chain n-2 at one lane, constant-time witness "
+        "(device ms): " + ", ".join(f"{t} {ms:.4f}"
+                                    for t, ms in witness.items()))
+    res[name]["shapes"] = shapes
+    res[name]["constant_time_ms"] = witness
 
 
 def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
                 plain_reps, products_total, bytes_total, keep=True,
-                mma_ops=0):
+                mma_ops=0, lanes=None):
     """Fail unless err is 0, then time the kernel (profiler, cold L2), its
     wrapper and its plain version (CUDA events) and print them with the
     bound (mma_ops: int8 MMA operations beside the products).  keep:
     record these numbers as the kernel's row (else only the error
-    counts)."""
+    counts).  Returns the kernel's device milliseconds."""
     if err != 0:
         fail(f"{label}: kernel differs from its plain version, max abs err "
              f"{err}")
@@ -878,7 +978,8 @@ def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
     plain_ms = cuda_ms(plain_call, plain_reps,
                        warmup=1 if plain_reps > 1 else 0)
     b_ms, b_by = bound_ms(int_rate, products_total, bytes_total, mma_ops)
-    say(f"kernel {label}: bit-exact at {LANES} lanes, {ms:.4f} ms device "
+    say(f"kernel {label}: bit-exact at {lanes or LANES} lanes, {ms:.4f} ms "
+        f"device "
         f"with a cold L2 (mean of {seen} of {reps} launches; wrapper call "
         f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms), bound {b_ms:.4f} "
         f"ms by {b_by}")
@@ -888,6 +989,7 @@ def timed_check(int_rate, res, name, label, err, call, plain_call, reps,
                      "bound_ms": b_ms, "bound_by": b_by}
     elif prev is not None:
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
+    return ms
 
 
 def tiled_points(curve, rng, lanes, device, n_pts=64):
@@ -1210,6 +1312,76 @@ def msm_kernel_checks(int_rate, data, rng, device, res):
         f"{b_ms:.4f} ms by {b_by} ({adds} adds of nonzero digits)")
     res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by}
+    fold_checks(int_rate, res, data, rng, device,
+                msm._window_sums_fused(k, p, 4).contiguous())
+
+
+def fold_rows(curve, rng, case, device):
+    """(window sums int32 [W, 3, 16] with random Z, their affine points,
+    window bits) of a fold edge case, least significant window first:
+    "edge" (w = 4) B, B (equal consecutive sums), the identity (0, Z, 0),
+    the identity (0, 1, 0), 16 A (equal to the accumulator at its add), A;
+    "cancel" (w = 4) C, -16 A (the accumulator's negation at its add), A."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    hc = curve.hc
+
+    def rand_point():
+        return curve.g_mul(int.from_bytes(rng.bytes(32), "big") % (hc.N - 1)
+                           + 1)
+    a, b, c = rand_point(), rand_point(), rand_point()
+    pts = [b, b, None, None, hc.mul(16, a), a] if case == "edge" \
+        else [c, hc.neg(hc.mul(16, a)), a]
+    zs = [int.from_bytes(rng.bytes(32), "big") % (hc.P - 1) + 1 for _ in pts]
+    xyz = [(0, 1 if i == 3 else z, 0) if q is None
+           else (q[0] * z % hc.P, q[1] * z % hc.P, z)
+           for i, (q, z) in enumerate(zip(pts, zs))]
+    rows = torch.as_tensor(lb.int_to_limbs_batch(
+        [t[i] for t in xyz for i in range(3)]), dtype=torch.int32)
+    rows = rows.t().reshape(len(pts), 3, 16).contiguous().to(device)
+    return rows, pts, 4
+
+
+def fold_checks(int_rate, res, data, rng, device, wsums):
+    """The fold kernel against its plain version, projective X, Y, Z
+    bit-exact: at the window sums of the 2^20-point bucket path (W = 64,
+    w = 4; timed, the kernel's row), at the sort + scan path's (W = 32,
+    w = 8, MSM_CHECK_POINTS points) and at the edge cases of `fold_rows`,
+    whose results are also held against python ints.  The device time
+    over the fold's point operations gives the latency of one (the fold
+    is serial).""" 
+    from secp256k1_tpu_torch.ops import msm
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    name = "msm_fold"
+    hc = data.curve.hc
+    k, p, _ = data.batch(MSM_CHECK_POINTS, rng)
+    cases = [("bucket path", wsums, 4, None),
+             ("sort + scan", msm.pippenger_window_sums(k, p, 8).contiguous(),
+              8, None)]
+    for case in ("edge", "cancel"):
+        rows, pts, w = fold_rows(data.curve, rng, case, device)
+        want = None
+        for q in pts[::-1]:
+            want = hc.add(hc.mul(1 << w, want) if want else None, q)
+        cases.append((case, rows, w, want))
+    for label, rows, w, want in cases:
+        n_windows = rows.shape[0]
+        got = K.msm_fold(rows, w)
+        err = max_abs_err(got, K.msm_fold_plain(rows, w))
+        ops = n_windows * (w + 1)
+        tag = f"msm_fold {label} (W = {n_windows}, w = {w})"
+        ms = timed_check(int_rate, res, name, tag, err,
+                         lambda: K.msm_fold(rows, w),
+                         lambda: K.msm_fold_plain(rows, w), 10, 1,
+                         n_windows * (w * PT_DOUBLE + PT_ADD),
+                         n_windows * 3 * 64 + 3 * 64, lanes=1)
+        if want is not None:
+            check_points(got, [want], hc, tag)
+        res[name].setdefault("cases", {})[label] = {
+            "windows": n_windows, "window_bits": w, "ms": ms,
+            "us_per_point_op": ms * 1e3 / ops}
+        say(f"kernel {tag}: {n_windows * w} doublings and {n_windows} adds "
+            f"in turn in one warp, {ms * 1e3 / ops:.3f} us a point "
+            f"operation")
 
 
 def check_points(planes, expect, hc, label):
@@ -1287,7 +1459,9 @@ def replay_plain(label, calls):
         recs = [r for r in recs if r[0][0].shape[1]]     # skip empty batches
         err = max(max_abs_err(outs, as_tuple(plain(*args, **kwargs)))
                   for args, kwargs, outs in recs)
-        widths = sorted({args[0].shape[1] for args, _, _ in recs})
+        # lanes; the fold's [W, 3, 16] window sums: W
+        widths = sorted({args[0].shape[0 if args[0].dim() == 3 else 1]
+                         for args, _, _ in recs})
         if err:
             fail(f"path {label}: a launch of {name} differs from its plain "
                  f"version, max abs err {err}")
@@ -1298,12 +1472,16 @@ def replay_plain(label, calls):
         f"operands ({time.perf_counter() - t0:.1f} s): {'; '.join(done)}")
 
 
-def run_path(label, kernels, fn, replay=()):
+def run_path(label, kernels, fn, replay=(), expect=None):
     """Drive one path: launch counts set to 0 just before fn(), read just
-    after.  Fails if a kernel of the path was not launched or a plain
-    version was called.  The launches of the kernels in `replay` are then
-    held against their plain versions on the same operands."""
+    after.  Fails if a kernel of the path was not launched, a plain version
+    was called, a kernel of `expect` ({name: launches}) was launched
+    another number of times, or one-lane point_add was launched where
+    `expect` gives it 0 ("point_add at 1").  The launches of the kernels in
+    `replay` are then held against their plain versions on the same
+    operands."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
+    expect = {"mod_pow2k": 0, **(expect or {})}     # no path launches it
     with recording(replay) as calls:
         K.reset_counts()
         out = fn()
@@ -1315,17 +1493,26 @@ def run_path(label, kernels, fn, replay=()):
         fail(f"path {label}: kernels not launched: {missing}")
     if any(plain.values()):
         fail(f"path {label}: plain versions called: {plain}")
+    chains, one_lane = {}, {}
+    for (name, width, detail), count in K.SHAPES.items():
+        if name == "mod_pow_chain":
+            tag = f"{CHAIN_LABEL.get(detail, hex(detail))} at {width}"
+            chains[tag] = chains.get(tag, 0) + count
+        elif width == 1 and detail is None:
+            one_lane[name] = one_lane.get(name, 0) + count
+    counts = dict(launches, **{f"{n} at 1": c for n, c in one_lane.items()})
+    wrong = {k: counts.get(k, 0) for k, v in expect.items()
+             if counts.get(k, 0) != v}
+    if wrong:
+        fail(f"path {label}: launches {wrong}, expected "
+             f"{ {k: expect[k] for k in wrong} }")
     PATH_LAUNCHES[label] = launches
-    shapes = {}                         # mod_pow2k: width -> [launches, sum k]
-    for (width, k), count in sorted(K.POW2K_SHAPES.items()):
-        rec = shapes.setdefault(width, [0, 0])
-        rec[0] += count
-        rec[1] += count * k
-    POW2K_SHAPES[label] = shapes
+    CHAIN_SHAPES[label] = chains
+    ONE_LANE[label] = one_lane
     say(f"path {label}: launches "
         f"{ {k: v for k, v in launches.items() if v} }; plain-version "
-        f"calls 0; mod_pow2k by width {{width: [launches, sum of k]}} "
-        f"{shapes}")
+        f"calls 0; mod_pow_chain by exponent and width {chains}; one-lane "
+        f"launches {one_lane}")
     replay_plain(label, calls)
     return out
 
@@ -1348,7 +1535,8 @@ def main_path(triples, rng, hc, wide):
         triples, LANES, wide, rng, hc)
     label = f"verify ({pubs.shape[1]}-byte keys)"
     got = run_path(label, VERIFY_KERNELS, lambda: ecdsa.verify_batch_arrays(
-        pubs, digests, sigs, lens, reject_malleable=True))
+        pubs, digests, sigs, lens, reject_malleable=True),
+        expect={"mod_pow_chain": 2})
     check_statuses(label, got, expected)
     return pubs, digests, sigs, lens
 
@@ -1496,7 +1684,7 @@ def ecdsa_sign_path(curve, signers, rng):
     expected[kinds[2]] = ec.ERR_V_NEQ_R
     ders_k[kinds[3], 0] = 0x31                            # malformed DER
     expected[kinds[3]] = ec.ERR_INVALID_ENCODING
-    got = run_path("keyed verify", VERIFY_KERNELS,
+    got = run_path("keyed verify", VERIFY_CORE_KERNELS,
                    lambda: ecdsa.verify_batch_arrays_keyed(
                        cache, key_idx, digests, ders_k, lens,
                        reject_malleable=True))
@@ -1933,13 +2121,16 @@ def msm_paths(data, rng):
                      (f"msm signed ({MSM_POINTS} points, w=5)", 5)):
         got = run_path(label, MSM_KERNELS,
                        lambda: msm.multi_scalar_mult(k, p, w),
-                       replay=MSM_KERNELS)
+                       replay=MSM_KERNELS,
+                       expect={"msm_fold": 1, "point_double": 0,
+                               "point_add at 1": 0})
         check_points(got, [want], hc, f"path {label}")
     k, p, want = data.batch(MSM_CHECK_POINTS, rng)
     label = f"msm sort+scan ({MSM_CHECK_POINTS} points, w=8)"
-    got = run_path(label, POINT_KERNELS,
+    got = run_path(label, SCAN_KERNELS,
                    lambda: msm.multi_scalar_mult(k, p, 8),
-                   replay=POINT_KERNELS)
+                   replay=SCAN_KERNELS,
+                   expect={"msm_fold": 1, "point_double": 0})
     check_points(got, [want], hc, f"path {label}")
     k, p, want = data.batch(MSM_STRAUS_POINTS, rng)
     label = f"msm Straus ({MSM_STRAUS_POINTS} points)"
@@ -2082,7 +2273,7 @@ def main():
         verify_planes = core_planes(triples, LANES, device)
         profile_core(f"_verify_impl at {LANES} lanes",
                      lambda: ecdsa._verify_impl(*verify_planes),
-                     [KERNEL_SYMBOL[name] for name in VERIFY_KERNELS])
+                     [KERNEL_SYMBOL[name] for name in VERIFY_CORE_KERNELS])
         profile_core(f"_sign_e2e_core at {LANES} lanes",
                      lambda: ecdsa._sign_e2e_core(*sign_planes),
                      [KERNEL_SYMBOL[name] for name in SIGN_KERNELS])
@@ -2107,8 +2298,13 @@ def main():
                     if counts[name]}
         if not per_path and name not in NO_PATH_KERNELS:
             fail(f"{name} was launched on no path")
-        shapes = {"pow2k_widths_per_path": POW2K_SHAPES} \
-            if name == "mod_pow2k" else {}
+        shapes = {}
+        if name == "mod_pow_chain":
+            shapes = {"by_exponent_and_width_per_path": CHAIN_SHAPES}
+        elif name in ("point_add", "point_double"):
+            shapes = {"one_lane_launches_per_path": {
+                label: c[name] for label, c in ONE_LANE.items()
+                if c.get(name)}}
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(per_path.values()),

@@ -1,5 +1,6 @@
 // msm_bucket_accumulate_all: Pippenger bucket accumulation for every window
-// in one launch.
+// in one launch; and msm_fold, the Horner fold of the window sums in one
+// launch (k_msm_fold, at the end of this file).
 //
 // Replaces the Pallas kernel msm_bucket_accumulate_all
 // (secp256k1_tpu/ops/pallas/kernels.py:1232, body _msm_bucket_all_kernel
@@ -84,5 +85,84 @@ extern "C" int msm_bucket_accumulate_all(const void* digits, const void* px,
       (const int*)digits, (const int*)px, (const int*)py, (const int*)pz,
       (uint4*)scratch, (int*)out, n_windows, n_points, n_buckets,
       signed_digits, m_slots);
+  return (int)cudaGetLastError();
+}
+
+// k_msm_fold: combine_windows (ops/msm.py) in one launch of one warp.
+//
+// Replaces the fold of the JAX package's combine_windows
+// (secp256k1_tpu/ops/msm.py:297, a lax.scan of window_bits point_double
+// and one point_add a window, the Pallas kernels point_double and
+// point_add: secp256k1_tpu/ops/pallas/kernels.py:1380, :1376).  On the TPU
+// the scan runs inside one compiled program; as one launch a point
+// operation (256 point_double and 64 point_add launches of one lane at
+// w = 4, W = 64) it left the card idle between launches.  Any W and
+// window_bits (W = 64, w = 4 and W = 53, w = 5 on the bucket path; W = 32,
+// w = 8 on sort + scan).
+//
+// Bound: latency.  The fold is serial: 256 doublings and 64 complete adds
+// (at w = 4, W = 64), each a dependent chain of field operations; the
+// card's product rate and its bytes (W x 192 B in, 192 B out) would take
+// well under a microsecond.  One thread took 2.8 us a point operation
+// (every product of a formula in turn); here the lanes of one warp share
+// each formula, so a doubling costs two products' latency and an add two,
+// with the sums and differences between them (msm.cuh).  Six lanes work;
+// the window's sum is read a window ahead, during the doublings.  The
+// output is the projective X, Y, Z of the launches it replaces.
+__global__ void __launch_bounds__(32)
+    k_msm_fold(const int* rows, int* ox, int* oy, int* oz, int n_windows,
+               int window_bits) {
+  __shared__ u32 reg[FOLD_REGS][8];
+  // The programs, staged so that each lane reads its own step of a round
+  // from its own bank (from constant memory six lanes' distinct steps
+  // would be read one after another).
+  __shared__ FoldStep prog[2][FOLD_ROUNDS][FOLD_WIDTH];
+  const int t = threadIdx.x;
+  for (int i = t; i < FOLD_ROUNDS * FOLD_WIDTH; i += 32) {
+    prog[0][i / FOLD_WIDTH][i % FOLD_WIDTH] =
+        kFoldDouble[i / FOLD_WIDTH][i % FOLD_WIDTH];
+    prog[1][i / FOLD_WIDTH][i % FOLD_WIDTH] =
+        kFoldAdd[i / FOLD_WIDTH][i % FOLD_WIDTH];
+  }
+  // Lane t < 24 holds word t % 8 of coordinate t / 8 of the point it
+  // loads or stores.
+  const int c = t / 8, k = t % 8;
+  if (t < 24) reg[FX + c][k] = t == 8 ? 1u : 0u;  // the identity (0, 1, 0)
+  __syncwarp();
+  for (int i = n_windows - 1; i >= 0; --i) {
+    u32 q = 0;
+    if (t < 24) {
+      const int* limb = rows + (size_t)i * 48 + 16 * c + 2 * k;
+      q = (u32)limb[0] | ((u32)limb[1] << 16);
+    }
+#pragma unroll 1
+    for (int d = 0; d < window_bits; ++d) {
+#pragma unroll 1
+      for (int r = 0; r < FOLD_ROUNDS; ++r) {
+        if (t < FOLD_WIDTH) fold_step(reg, prog[0][r][t]);
+        __syncwarp();
+      }
+    }
+    if (t < 24) reg[FQX + c][k] = q;
+    __syncwarp();
+#pragma unroll 1
+    for (int r = 0; r < FOLD_ROUNDS; ++r) {
+      if (t < FOLD_WIDTH) fold_step(reg, prog[1][r][t]);
+      __syncwarp();
+    }
+  }
+  if (t < 24) {
+    int* out = (c == 0 ? ox : c == 1 ? oy : oz) + 2 * k;
+    out[0] = (int)(reg[FX + c][k] & 0xFFFFu);
+    out[1] = (int)(reg[FX + c][k] >> 16);
+  }
+}
+
+// rows: int32 [n_windows, 3, 16]; ox, oy, oz: int32 [16, 1].
+extern "C" int msm_fold(const void* rows, void* ox, void* oy, void* oz,
+                        int n_windows, int window_bits, void* stream) {
+  k_msm_fold<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const int*)rows, (int*)ox, (int*)oy, (int*)oz, n_windows,
+      window_bits);
   return (int)cudaGetLastError();
 }

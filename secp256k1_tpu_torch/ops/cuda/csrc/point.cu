@@ -21,13 +21,18 @@
 // products and 2 by b3.
 // Design: one thread per lane, 128 threads a block, no shared memory; any
 // B, the ragged edge masked by the lane bound (no padding to a tile).
+// k_point_add is held to 128 registers (it took 140 unbounded, three
+// blocks an SM), so four blocks of 128 fit an SM and 65,536 lanes run in
+// one wave of 512 blocks over 528 slots.  The MSM's lane merge and
+// weighted sums launch it at 960 to 491,520 lanes.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
 
-__global__ void k_point_add(const int* x1, const int* y1, const int* z1,
-                            const int* x2, const int* y2, const int* z2,
-                            int* ox, int* oy, int* oz, int lanes) {
+__global__ void __launch_bounds__(128, 4)
+    k_point_add(const int* x1, const int* y1, const int* z1, const int* x2,
+                const int* y2, const int* z2, int* ox, int* oy, int* oz,
+                int lanes) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   Pt p, q;
@@ -113,4 +118,13 @@ extern "C" int point_add_mixed(const void* x1, const void* y1, const void* z1,
       (const int*)x1, (const int*)y1, (const int*)z1, (const int*)x2,
       (const int*)y2, (int*)ox, (int*)oy, (int*)oz, lanes);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of 128 threads an SM of k_point_add; -1 on an error.
+extern "C" int point_add_blocks_per_sm(int) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k_point_add,
+                                                    kThreads, 0))
+    return -1;
+  return blocks;
 }

@@ -1,5 +1,5 @@
-"""The port's fourteen kernels: wrappers, plain versions, launch counts,
-and the GLV engine switches.
+"""The port's kernels: wrappers, plain versions, launch counts, and the
+GLV engine switches.
 
 Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` has here
 
@@ -16,8 +16,14 @@ Each TPU kernel of `secp256k1_tpu/ops/pallas/kernels.py` has here
   tests run and `chip_smoke.py` compares the kernel with on the card;
 - a count of launches (`LAUNCHES`), raised by one where the wrapper
   launches its kernel and nowhere else, and a count of wrapper calls that
-  took the plain version (`PLAIN_CALLS`); `mod_pow2k`'s launches are also
-  tallied by lanes and k (`POW2K_SHAPES`).
+  took the plain version (`PLAIN_CALLS`); launches are also tallied by
+  their shape (`SHAPES`).
+
+Two more wrappers run a chain of those kernels' work in one launch, where
+the JAX package runs the chain of `pallas_call`s inside one compiled
+program: `mod_pow_chain` (x^e for a public constant e: the chains of
+`ModRing.pow_const_chain`, of which `mod_pow2k` is the one-step case) and
+`msm_fold` (the Horner fold of `msm.combine_windows`).
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
@@ -32,6 +38,7 @@ by default): `ops/glv.py` takes the GLV engine they name on both devices.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -48,10 +55,13 @@ KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "base_windowed_add", "glv_windowed_mult_from_points",
            "msm_bucket_accumulate_all", "glv_windowed_mult", "point_add",
            "point_double", "point_double4", "point_add_mixed",
-           "point_lookup_add")
+           "point_lookup_add", "mod_pow_chain", "msm_fold")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
-POW2K_SHAPES: dict = {}         # mod_pow2k launches by (lanes, k)
+# Launches by (kernel, lanes, detail): detail the exponent of mod_pow_chain,
+# k of mod_pow2k, the window bits of msm_fold (lanes: its windows), else
+# None.
+SHAPES: dict = {}
 
 
 # The whole GLV loop in one launch (mega), with signed 8-entry windows
@@ -83,7 +93,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
-    POW2K_SHAPES.clear()
+    SHAPES.clear()
 
 
 def _on_cpu(*ts) -> bool:
@@ -107,7 +117,11 @@ def _check(name: str, t: torch.Tensor, rows: int, lanes: int) -> None:
 _CONFIGURED: set = set()
 
 
-def _launch(kernel: str, lib_name: str, fn_name: str, ptrs, ints) -> None:
+def _launch(kernel: str, lib_name: str, fn_name: str, ptrs, ints,
+            shape=None) -> None:
+    """Launch `fn_name` of lib<lib_name>.so on the current stream: tensor
+    pointers, then ints, then the stream.  Counts the launch under `kernel`
+    and its shape (lanes, detail) in SHAPES."""
     lib = build.library(lib_name)
     fn = getattr(lib, fn_name)
     if (lib_name, fn_name) not in _CONFIGURED:
@@ -120,6 +134,9 @@ def _launch(kernel: str, lib_name: str, fn_name: str, ptrs, ints) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
+    if shape is not None:
+        key = (kernel, *shape)
+        SHAPES[key] = SHAPES.get(key, 0) + 1
 
 
 def _c_limbs(modulus: int):
@@ -146,6 +163,107 @@ def mod_pow2k_plain(a, k: int, modulus: int) -> torch.Tensor:
     for _ in range(k):
         a = mod_square_plain(a, modulus)
     return a
+
+
+# A step of an exponentiation chain, (src, k, mul, dst): acc = slot[src]
+# (src POW_ACC: keep acc), k squarings, acc *= slot[mul] (unless POW_ACC),
+# slot[dst] = acc (unless POW_ACC); slot 0 holds x.  The kernel takes each
+# step as one word (`csrc/modops.cuh`).
+POW_ACC = 63
+POW_MAX_STEPS = 64
+POW_MAX_SLOTS = 24
+
+
+def chain_runs(e: int) -> list:
+    """Runs of (ones, zeros) in the binary expansion of e, MSB first."""
+    bits = bin(e)[2:]
+    runs = []
+    i = 0
+    while i < len(bits):
+        j = i
+        while j < len(bits) and bits[j] == "1":
+            j += 1
+        k = j
+        while k < len(bits) and bits[k] == "0":
+            k += 1
+        runs.append((j - i, k - j))
+        i = k
+    return runs
+
+
+@functools.cache
+def pow_chain_steps(e: int) -> tuple:
+    """The steps of x^e for a constant e >= 1, a run-decomposition chain
+    like the JAX `ModRing.pow_const_chain`'s (the same value, fewer
+    squarings).  First every x^(2^r - 1) that a run length r of e needs is
+    built, shortest first, in slots: from the longest q <= r built so far,
+    x^(2^2q - 1) = (x^(2^q - 1))^(2^q) x^(2^q - 1) while 2q <= r, then
+    x^(2^r - 1) = (x^(2^q - 1))^(2^(r-q)) x^(2^(r-q) - 1) (r - q built the
+    same way).  So the longest run (223 ones of p - 2) costs 222 squarings
+    and some shorter runs' values come on the way.  Then each run of the
+    exponent, most significant first: squarings over the zeros before it
+    and its ones, times x^(2^ones - 1).  e = 2^k is one step: k squarings
+    of x.  Depends on e only."""
+    if e < 1:
+        raise ValueError(f"pow_chain_steps: e must be >= 1, got {e}")
+    runs = chain_runs(e)
+    slot = {1: 0}                     # r -> slot of x^(2^r - 1)
+    steps = []
+
+    def build(r):
+        if r in slot:
+            return slot[r]
+        q = max(v for v in slot if v <= r)
+        while 2 * q <= r:
+            if 2 * q not in slot:
+                s = slot[q]
+                slot[2 * q] = len(slot)
+                steps.append((s, q, s, slot[2 * q]))
+            q *= 2
+        if q < r:
+            m = build(r - q)
+            slot[r] = len(slot)
+            steps.append((slot[q], r - q, m, slot[r]))
+        return slot[r]
+
+    for ones in sorted({ones for ones, _ in runs}):
+        build(ones)
+    src, pending = slot[runs[0][0]], runs[0][1]
+    for ones, zeros in runs[1:]:
+        steps.append((src, pending + ones, slot[ones], POW_ACC))
+        src, pending = POW_ACC, zeros
+    if src != POW_ACC or pending:
+        steps.append((src, pending, POW_ACC, POW_ACC))
+    if len(steps) > POW_MAX_STEPS or len(slot) > POW_MAX_SLOTS \
+            or max(k for _, k, _, _ in steps) >= 1 << 12:
+        raise ValueError(f"pow_chain_steps: the chain of {e:#x} takes "
+                         f"{len(steps)} steps and {len(slot)} slots, more "
+                         f"than the kernel holds")
+    return tuple(steps)
+
+
+@functools.cache
+def _pow_chain_words(e: int) -> torch.Tensor:
+    """The steps of e as the kernel's words, an int32 tensor on the host."""
+    words = [k | src << 12 | mul << 18 | dst << 24
+             for src, k, mul, dst in pow_chain_steps(e)]
+    return torch.tensor(words, dtype=torch.int32)
+
+
+def mod_pow_chain_plain(a, e: int, modulus: int) -> torch.Tensor:
+    """a^e mod m: the steps of `pow_chain_steps(e)` by the plain
+    `mod_pow2k` and `mod_mul`.  Zero maps to 0."""
+    slots = {0: a}
+    acc = a
+    for src, k, mul, dst in pow_chain_steps(e):
+        if src != POW_ACC:
+            acc = slots[src]
+        acc = mod_pow2k_plain(acc, k, modulus)
+        if mul != POW_ACC:
+            acc = mod_mul_plain(acc, slots[mul], modulus)
+        if dst != POW_ACC:
+            slots[dst] = acc
+    return acc
 
 
 def _glv_plain(d1, d2, t1, t2, signed: bool, from_identity: bool):
@@ -414,6 +532,23 @@ def msm_bucket_accumulate_all_plain(digits, px, py, pz, n_buckets: int,
     return acc.permute(2, 3, 0, 1, 4).contiguous()
 
 
+def msm_fold_plain(window_sums, window_bits: int):
+    """sum over windows i of 2^(window_bits * i) W_i by the Horner fold of
+    `msm.combine_windows`: from the identity, most significant window
+    first, window_bits doublings (RCB Algorithm 9) and one complete add
+    (Algorithm 7, the accumulator first) a window, under `fe.F_PLAIN`.
+    window_sums: int32 [W, 3, 16] rows.  Returns canonical [16, 1] planes
+    (x, y, z)."""
+    from .. import field as fe
+    from .. import point as pt
+    acc = pt.identity((1,), window_sums.device)
+    for wsum in window_sums.flip(0):
+        for _ in range(window_bits):
+            acc = pt.double(acc, fe.F_PLAIN)
+        acc = pt.add(acc, pt.Point(*wsum.unsqueeze(-1)), fe.F_PLAIN)
+    return tuple(c.contiguous() for c in acc)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -428,7 +563,7 @@ def mod_mul(a: torch.Tensor, b: torch.Tensor, modulus: int) -> torch.Tensor:
     _check("mod_mul", b, 16, lanes)
     out = torch.empty_like(a)
     _launch("mod_mul", "modops", "mod_mul", [a, b, out],
-            [lanes, MOD_ID[modulus]])
+            [lanes, MOD_ID[modulus]], (lanes, None))
     return out
 
 
@@ -441,24 +576,46 @@ def mod_square(a: torch.Tensor, modulus: int) -> torch.Tensor:
     _check("mod_square", a, 16, lanes)
     out = torch.empty_like(a)
     _launch("mod_square", "modops", "mod_square", [a, out],
-            [lanes, MOD_ID[modulus]])
+            [lanes, MOD_ID[modulus]], (lanes, None))
+    return out
+
+
+def _pow_chain_launch(name: str, a: torch.Tensor, e: int, modulus: int,
+                      detail: int) -> torch.Tensor:
+    """a^e mod m by one launch of the chain kernel, counted under `name`
+    with `detail` in SHAPES."""
+    lanes = a.shape[1]
+    _check(name, a, 16, lanes)
+    out = torch.empty_like(a)
+    if lanes:
+        words = _pow_chain_words(e)
+        _launch(name, "modops", "mod_pow_chain", [a, out, words],
+                [lanes, words.numel(), MOD_ID[modulus]], (lanes, detail))
     return out
 
 
 def mod_pow2k(a: torch.Tensor, k: int, modulus: int) -> torch.Tensor:
-    """a^(2^k) mod m, k squarings in one launch.  Replaces Pallas
-    `mod_pow2k` (kernels.py:784)."""
-    assert k >= 1
+    """a^(2^k) mod m, k squarings in one launch: the one-step chain of
+    `mod_pow_chain`'s kernel.  Replaces Pallas `mod_pow2k`
+    (kernels.py:784)."""
+    if not 1 <= k < 1 << 12:
+        raise ValueError(f"mod_pow2k: k must be in [1, 4096), got {k}")
     if _on_cpu(a):
         PLAIN_CALLS["mod_pow2k"] += 1
         return mod_pow2k_plain(a, k, modulus)
-    lanes = a.shape[1]
-    _check("mod_pow2k", a, 16, lanes)
-    out = torch.empty_like(a)
-    _launch("mod_pow2k", "modops", "mod_pow2k", [a, out],
-            [lanes, k, MOD_ID[modulus]])
-    POW2K_SHAPES[lanes, k] = POW2K_SHAPES.get((lanes, k), 0) + 1
-    return out
+    return _pow_chain_launch("mod_pow2k", a, 1 << k, modulus, k)
+
+
+def mod_pow_chain(a: torch.Tensor, e: int, modulus: int) -> torch.Tensor:
+    """a^e mod m for a public constant e >= 1, the whole chain in one
+    launch (`pow_chain_steps(e)`: its squarings and multiplies, no address
+    or trip count depending on a).  Replaces the chain of Pallas `mod_pow2k`
+    (kernels.py:784) and `mod_mul` (:1366) calls of the JAX
+    `ModRing.pow_const_chain` (modring.py:204)."""
+    if _on_cpu(a):
+        PLAIN_CALLS["mod_pow_chain"] += 1
+        return mod_pow_chain_plain(a, e, modulus)
+    return _pow_chain_launch("mod_pow_chain", a, e, modulus, e)
 
 
 def glv_windowed_mult_signed_from_points(d1, d2, p1, p2):
@@ -555,17 +712,18 @@ def base_windowed_add_final(digits, table, qx, qy, qz):
     return tuple(outs)
 
 
-def base_blocks_per_sm(final: bool) -> int:
-    """Resident blocks of 128 threads an SM of `k_base_final` (final) or
-    `k_base_scan`, as the CUDA occupancy calculator gives them (the
-    kernels are built first where needed)."""
-    fn = build.library("base").base_blocks_per_sm
+def blocks_per_sm(lib_name: str, fn_name: str, which: int = 0) -> int:
+    """Resident blocks an SM of a kernel, as the CUDA occupancy calculator
+    gives them through lib<lib_name>.so's `fn_name(which)` (the kernels are
+    built first where needed): `base_blocks_per_sm` (0 `k_base_scan`, 1
+    `k_base_final`), `point_add_blocks_per_sm`, `pow_chain_blocks_per_sm`
+    (0 mod p, 1 mod n)."""
+    fn = getattr(build.library(lib_name), fn_name)
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    blocks = fn(int(final))
+    blocks = fn(int(which))
     if blocks < 0:
-        raise RuntimeError("base_blocks_per_sm: the CUDA occupancy query "
-                           "failed")
+        raise RuntimeError(f"{fn_name}: the CUDA occupancy query failed")
     return blocks
 
 
@@ -587,7 +745,8 @@ def _lanewise(name: str, lib_name: str, plain, planes, extra=(),
     if on_cpu:
         PLAIN_CALLS[name] += 1
         return plain(*planes, *extra)
-    _launch(name, lib_name, name, [*planes, *extra, *outs], [lanes])
+    _launch(name, lib_name, name, [*planes, *extra, *outs], [lanes],
+            (lanes, None))
     return tuple(outs)
 
 
@@ -639,6 +798,34 @@ def msm_bucket_accumulate_all(digits, px, py, pz, n_buckets: int,
             [digits, px, py, pz, scratch, out],
             [w, n, n_buckets, int(signed_digits), m_slots])
     return out
+
+
+def msm_fold(window_sums: torch.Tensor, window_bits: int):
+    """The Horner fold of `msm.combine_windows` in one launch of one warp
+    (see `msm_fold_plain` for the function): window_sums int32 [W, 3, 16]
+    rows, any W >= 0 and window_bits >= 1.  Returns (x, y, z) int32
+    [16, 1] planes.  Replaces the fold of the JAX `combine_windows`
+    (msm.py:297): window_bits Pallas `point_double` (kernels.py:1380) and
+    one `point_add` (:1376) a window."""
+    name = "msm_fold"
+    if window_sums.dtype != torch.int32 or window_sums.dim() != 3 \
+            or window_sums.shape[1:] != (3, 16) \
+            or not window_sums.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous int32 [W, 3, 16] "
+                         f"window sums, got {window_sums.dtype} "
+                         f"{tuple(window_sums.shape)}")
+    if window_bits < 1:
+        raise ValueError(f"{name}: window_bits must be >= 1, got "
+                         f"{window_bits}")
+    if _on_cpu(window_sums):
+        PLAIN_CALLS[name] += 1
+        return msm_fold_plain(window_sums, window_bits)
+    n_windows = window_sums.shape[0]
+    outs = [torch.empty((16, 1), dtype=torch.int32,
+                        device=window_sums.device) for _ in range(3)]
+    _launch(name, "msm", "msm_fold", [window_sums, *outs],
+            [n_windows, window_bits], (n_windows, window_bits))
+    return tuple(outs)
 
 
 def glv_windowed_mult_from_points(d1, d2, p1, p2):

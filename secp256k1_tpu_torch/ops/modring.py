@@ -5,11 +5,12 @@ field (p = 2^256 - 2^32 - 977) and the scalar ring (mod n); both moduli are
 2^256 - c with small c, so reduction is Solinas folding.
 
 Elements are canonical everywhere: int32 [16, B] planes, limbs < 2^16,
-value < modulus.  `mul`, `square` and `pow2k` go through the kernel
-wrappers of `ops/cuda/kernels.py`, which launch the CUDA kernels for CUDA
-tensors and run the plain versions for CPU tensors; the rest is limb
-algebra on tensors.  A ring built with `plain=True` never goes through the
-wrappers: the plain versions of the point kernels compute with it.
+value < modulus.  `mul`, `square`, `pow2k` and `pow_const_chain` go
+through the kernel wrappers of `ops/cuda/kernels.py`, which launch the CUDA
+kernels for CUDA tensors and run the plain versions for CPU tensors; the
+rest is limb algebra on tensors.  A ring built with `plain=True` never goes
+through the wrappers: the plain versions of the point kernels compute with
+it.
 """
 
 from __future__ import annotations
@@ -21,23 +22,6 @@ from .cuda import kernels as K
 
 NLIMBS = lb.NLIMBS
 DTYPE = lb.DTYPE
-
-
-def chain_runs(e: int) -> list:
-    """Runs of (ones, zeros) in the binary expansion of e, MSB first."""
-    bits = bin(e)[2:]
-    runs = []
-    i = 0
-    while i < len(bits):
-        j = i
-        while j < len(bits) and bits[j] == "1":
-            j += 1
-        k = j
-        while k < len(bits) and bits[k] == "0":
-            k += 1
-        runs.append((j - i, k - j))
-        i = k
-    return runs
 
 
 class ModRing:
@@ -123,38 +107,13 @@ class ModRing:
         return K.mod_pow2k(_flat(x), k, self.modulus)
 
     def pow_const_chain(self, x, e: int):
-        """x^e via a run-decomposition addition chain: ~bitlen squarings
-        (in `pow2k` runs) + ~15-40 multiplies, the schedule of the JAX
-        `ModRing.pow_const_chain`."""
-        assert e >= 1
-        runs = chain_runs(e)
-        assert runs and runs[0][0] >= 1
-        built = {1: x}  # r -> x^(2^r - 1)
-
-        def build(r):
-            if r in built:
-                return built[r]
-            p2 = 1
-            while p2 * 2 <= r:
-                if p2 * 2 not in built:
-                    built[p2 * 2] = self.mul(
-                        self.pow2k(built[p2], p2), built[p2])
-                p2 *= 2
-            if r not in built:
-                rem = r - p2
-                built[r] = self.mul(self.pow2k(built[p2], rem), build(rem))
-            return built[r]
-
-        ones0, zeros0 = runs[0]
-        acc = build(ones0)
-        pending_zeros = zeros0
-        for ones, zeros in runs[1:]:
-            acc = self.pow2k(acc, pending_zeros + ones)
-            acc = self.mul(acc, build(ones))
-            pending_zeros = zeros
-        if pending_zeros:
-            acc = self.pow2k(acc, pending_zeros)
-        return acc
+        """x^e for a constant e >= 1 (the value of the JAX
+        `ModRing.pow_const_chain`) by the addition chain of
+        `kernels.pow_chain_steps`: ~bitlen squarings and 15-46 multiplies
+        for the exponents here, one `mod_pow_chain` launch on CUDA."""
+        if self.plain:
+            return K.mod_pow_chain_plain(x, e, self.modulus)
+        return K.mod_pow_chain(_flat(x), e, self.modulus)
 
     def invert(self, x):
         """Fermat inverse x^(m-2); maps 0 -> 0."""

@@ -12,8 +12,8 @@ names:
 - the sort + scan path: a stable sort by digit, `_segmented_point_scan`
   with the complete add as its combiner, the scatter of segment tails
   (`_bucket_accumulate`, trash slot n_buckets) and `_weighted_bucket_sum`;
-- `combine_windows` (the Horner fold, a Python loop where JAX has
-  `lax.scan`), `multi_scalar_mult` and `multi_scalar_mult_straus`.
+- `combine_windows` (the Horner fold: one `msm_fold` launch where JAX
+  has a `lax.scan`), `multi_scalar_mult` and `multi_scalar_mult_straus`.
 
 `_fused_msm_ok` takes the decision the JAX package takes on its TPU, on
 both devices here, so the port's projective result equals what the JAX
@@ -24,9 +24,9 @@ window's sums are the ones a call of its own would give.
 
 Layout: plane stacks [3, 16, *batch, N] (limbs before lanes) in the scans
 and merges, [K, 3, 16] row stacks at the boundaries, as in the JAX module.
-The device follows the tensors: on CUDA the point adds, doublings and the
-bucket accumulation launch their kernels; on the CPU the wrappers run the
-plain versions.  A result is a Point of batch (1,) (JAX: batch ()).
+The device follows the tensors: on CUDA the point adds, doublings, the
+bucket accumulation and the fold launch their kernels; on the CPU the
+wrappers run the plain versions.  A result is a Point of batch (1,) (JAX: batch ()).
 """
 
 from __future__ import annotations
@@ -275,14 +275,11 @@ def pippenger_window_sums(scalars, points: pt.Point, window_bits: int):
 
 
 def combine_windows(window_sums, window_bits: int) -> pt.Point:
-    """Horner fold: sum_w 2^(c*w) W_w, most significant window first.
-    window_sums: rows [W, 3, 16]."""
-    acc = pt.identity((1,), window_sums.device)
-    for wsum in window_sums.flip(0):
-        for _ in range(window_bits):
-            acc = pt.double(acc)
-        acc = pt.add(acc, pt.Point(*wsum.unsqueeze(-1)))
-    return acc
+    """Horner fold: sum_w 2^(c*w) W_w, most significant window first, one
+    `msm_fold` (window_bits doublings and one complete add a window, in
+    one launch on CUDA).  window_sums: rows [W, 3, 16]."""
+    return pt.Point(*K.msm_fold(window_sums.to(lb.DTYPE).contiguous(),
+                                window_bits))
 
 
 def multi_scalar_mult(scalars, points: pt.Point,

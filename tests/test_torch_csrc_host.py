@@ -3,11 +3,12 @@
 `secp256k1_tpu_torch/ops/cuda/csrc/field.cuh` writes every multi-word sum,
 difference and product as PTX carry chains; compiled by a plain C++
 compiler it emulates the same primitives with a carry variable.  This file
-builds `field.cuh` and `point.cuh` with g++ into a small library (a harness
-below, one C function a formula over arrays of 8-word values) and holds it
-against python ints (the field operations mod p and mod n, the edge values
-of `tests/test_kernel_bodies.py` among them) and against the port's plain
-point formulas (`ops/cuda/kernels.py`: the same projective X, Y, Z that the
+builds `field.cuh`, `point.cuh` and the kernels' per-thread bodies with g++
+into a small library (a harness below, one C function a formula over
+arrays of 8-word values) and holds it against python ints (the field
+operations mod p and mod n, the exponentiation chain, the edge values of
+`tests/test_kernel_bodies.py` among them) and against the port's plain
+versions (`ops/cuda/kernels.py`: the same projective X, Y, Z that the
 kernels must give on the card).  Tolerance 0 throughout.
 
 What this cannot see: the PTX itself (nvcc is not needed here) and the
@@ -38,6 +39,7 @@ HARNESS = r"""
 
 #include "base.cuh"
 #include "glv.cuh"
+#include "modops.cuh"
 #include "msm.cuh"
 
 template <class M>
@@ -93,6 +95,33 @@ extern "C" void point_ops(int op, const u32* a, const u32* b, u32* out,
       out[24 * i + 16 + k] = r.z[k];
     }
   }
+}
+
+// k_mod_pow_chain lane by lane: the chain of `steps` on 8-word values.
+extern "C" void pow_chain_ops(int mod, const u32* steps, int n_steps,
+                              const u32* a, u32* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    u32 x[8];
+    for (int k = 0; k < 8; ++k) x[k] = a[8 * i + k];
+    if (mod == 0) pow_chain<ModP>(steps, n_steps, x);
+    else pow_chain<ModN>(steps, n_steps, x);
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = x[k];
+  }
+}
+
+// k_msm_fold's rounds, their steps one after another: the Horner fold of
+// [W, 3, 16] window-sum rows.
+extern "C" void msm_fold_rows(const int* rows, int n_windows,
+                              int window_bits, int* ox, int* oy, int* oz) {
+  Pt acc;
+  fold_windows(rows, n_windows, window_bits, acc);
+  pt_store(ox, oy, oz, 1, 0, acc);
+}
+
+// Whether each round of the fold's two programs may run its steps in any
+// order (the warp runs them at once).
+extern "C" int fold_programs_ok() {
+  return fold_program_ok(kFoldDouble) && fold_program_ok(kFoldAdd);
 }
 
 // k_msm_buckets thread by thread.
@@ -170,7 +199,7 @@ def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
     for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh",
-                 "base.cuh"):
+                 "base.cuh", "modops.cuh"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -330,6 +359,74 @@ def test_point_formulas_match_the_plain_versions(host_lib, op):
 # ---------------------------------------------------------------------------
 # The kernels' per-thread bodies: the bucket walk and the GLV loop.
 # ---------------------------------------------------------------------------
+
+# (exponent, modulus): the chains of invert mod p and mod n and of the
+# square root, a one-step mod_pow2k (2^95, 2^1), and short ones (3: one
+# multiply after a copy; 2^64 + 1: squarings and a multiply in one step).
+CHAIN_CASES = {"p-2": (P - 2, P), "n-2": (N - 2, N),
+               "(p-3)/4": ((P - 3) // 4, P), "2^95-mod-n": (1 << 95, N),
+               "2^1": (2, P), "3-mod-n": (3, N), "2^64+1": ((1 << 64) + 1, P)}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_CASES))
+def test_pow_chain_matches_python_ints_and_the_plain_version(host_lib,
+                                                              name):
+    """k_mod_pow_chain's loop (modops.cuh) over the kernel's step words,
+    against pow(x, e, m) and `mod_pow_chain_plain`; zero maps to 0."""
+    e, m = CHAIN_CASES[name]
+    vals = _vals(m, np.random.default_rng(len(name)), 24)
+    steps = np.ascontiguousarray(K._pow_chain_words(e).numpy()
+                                 .astype(np.uint32))
+    out = np.zeros((len(vals), 8), np.uint32)
+    host_lib.pow_chain_ops(int(m == N), _ptr(steps), len(steps),
+                           _ptr(_words(vals)), _ptr(out), len(vals))
+    assert _ints(out) == [pow(v, e, m) for v in vals]
+    plain = K.mod_pow_chain_plain(
+        torch.as_tensor(lb.int_to_limbs_batch(vals), dtype=torch.int32), e,
+        m)
+    assert _ints(out) == lb.limbs_to_int_batch(plain)
+
+
+def _fold_case(case):
+    """(rows int32 [W, 3, 16], window bits): "w4" W = 4, w = 4; "w8" W = 3,
+    w = 8 (random points, random Z); "edge" w = 4, least significant
+    window first: B, B, the identity (0, Z, 0), the identity (0, 1, 0),
+    16 A (equal to the accumulator at its add), A; "cancel" w = 4: C,
+    -16 A (the accumulator's negation at its add), A."""
+    rng = np.random.default_rng({"w4": 1, "w8": 2, "edge": 3, "cancel": 4}[case])
+    a, b, c = (hc.mul(int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1,
+                      hc.G) for _ in range(3))
+    if case in ("w4", "w8"):
+        w, n = (4, 4) if case == "w4" else (8, 3)
+        pts = [hc.mul(int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1,
+                      hc.G) for _ in range(n)]
+    elif case == "edge":
+        w, pts = 4, [b, b, None, None, hc.mul(16, a), a]
+    else:
+        w, pts = 4, [c, hc.neg(hc.mul(16, a)), a]
+    zs = [int.from_bytes(rng.bytes(32), "big") % (P - 1) + 1 for _ in pts]
+    xyz = [(0, 1 if i == 3 and case == "edge" else z, 0) if q is None
+           else (q[0] * z % P, q[1] * z % P, z)
+           for i, (q, z) in enumerate(zip(pts, zs))]
+    rows = torch.stack([plane.t() for plane in _planes(xyz)],
+                       dim=1).contiguous()
+    return rows, w
+
+
+@pytest.mark.parametrize("case", ["w4", "w8", "edge", "cancel"])
+def test_fold_matches_the_plain_version(host_lib, case):
+    """k_msm_fold's rounds (msm.cuh), run step by step: X, Y, Z word for
+    word against `msm_fold_plain`.  The warp runs each round's steps at
+    once, which gives the same values only if no step of a round writes a
+    register another step of it reads or writes."""
+    assert host_lib.fold_programs_ok() == 1
+    rows, w = _fold_case(case)
+    outs = [np.zeros((16, 1), np.int32) for _ in range(3)]
+    host_lib.msm_fold_rows(_ptr(_np32(rows)), rows.shape[0], w,
+                           *[_ptr(o) for o in outs])
+    for got, want in zip(outs, K.msm_fold_plain(rows, w)):
+        assert np.array_equal(got, want.numpy())
+
 
 def _np32(t):
     return np.ascontiguousarray(t.numpy().astype(np.int32))

@@ -258,6 +258,49 @@ def test_plain_pow2k_and_wrappers(ring):
     assert K.LAUNCHES["mod_pow2k"] == 0
 
 
+CHAINS = {"p-2": (P - 2, P), "n-2": (N - 2, N), "(p-3)/4": ((P - 3) // 4, P)}
+
+
+@pytest.mark.parametrize("lanes", [1, 257])
+@pytest.mark.parametrize("name", sorted(CHAINS))
+def test_plain_pow_chain_matches_python_ints(name, lanes):
+    """mod_pow_chain_plain for the exponents of invert and the square
+    root: the edge values and random ones in a 257-lane batch; 0, m - 1
+    and a random value each alone in a one-lane batch (the root of
+    invert_batch)."""
+    e, m = CHAINS[name]
+    vals = _vals(m, 257, seed=61)
+    batches = [vals] if lanes > 1 else [[0], [m - 1], [vals[-1]]]
+    for batch in batches:
+        got = K.mod_pow_chain_plain(_t(_np(batch)), e, m)
+        assert got.shape == (16, len(batch)) and got.dtype == torch.int32
+        assert lb.limbs_to_int_batch(got) == [pow(x, e, m) for x in batch]
+
+
+def test_pow_const_chain_takes_the_chain_wrapper():
+    """pow_const_chain is one mod_pow_chain call (its plain version on CPU
+    tensors, no mod_pow2k or mod_mul of its own); the plain ring runs the
+    plain chain directly; mod_pow2k is the one-step chain of 2^k."""
+    a = _t(_np(_vals(P, 16, seed=62)))
+    e = (P - 3) // 4
+    K.reset_counts()
+    got = fe.F.pow_const_chain(a, e)
+    assert K.PLAIN_CALLS["mod_pow_chain"] == 1
+    assert sum(K.PLAIN_CALLS.values()) == 1 and not any(K.LAUNCHES.values())
+    assert torch.equal(got, fe.F_PLAIN.pow_const_chain(a, e))
+    assert sum(K.PLAIN_CALLS.values()) == 1
+    steps = K.pow_chain_steps(P - 2)
+    assert sum(k for _, k, _, _ in steps) == 261       # 255 at the least
+    steps = K.pow_chain_steps(N - 2)
+    assert steps == K.pow_chain_steps(N - 2)           # e alone decides
+    assert K.pow_chain_steps(1 << 9) == ((0, 9, K.POW_ACC, K.POW_ACC),)
+    squarings = sum(k for _, k, _, _ in steps)
+    multiplies = sum(mul != K.POW_ACC for _, _, mul, _ in steps)
+    assert (len(steps), squarings, multiplies) == (46, 309, 46)
+    with pytest.raises(ValueError):
+        K.pow_chain_steps(0)
+
+
 @pytest.mark.parametrize("ring", ["p", "n"])
 def test_invert_against_python_ints(ring):
     tr, _, m = RINGS[ring]

@@ -13,6 +13,7 @@ the path and its arithmetic are the same.
 """
 
 import functools
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -355,6 +356,74 @@ def test_lane_merge_matches_gold():
             acc = gold.affine_add(acc, p)
         want.append(acc)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The window fold (msm_fold) against python ints and the launch loop.
+# ---------------------------------------------------------------------------
+
+def _fold_rows(case):
+    """(window sums as int32 [W, 3, 16] rows with random Z, their affine
+    points (None for the identity), window bits).  "w4": W = 4, w = 4;
+    "w8": W = 3, w = 8; "edge", w = 4, least significant window first: B,
+    B (equal consecutive sums), the identity (0, Z, 0), the identity
+    (0, 1, 0), 16 A (equal to the accumulator at its add), A; "cancel",
+    w = 4: C, -16 A (the accumulator's negation at its add), A."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    a, b, c = (gold.affine_mul(k, gold.GEN) for k in _rand(N - 1, 3, rng))
+    if case in ("w4", "w8"):
+        w, n = (4, 4) if case == "w4" else (8, 3)
+        pts = [gold.affine_mul(k, gold.GEN) for k in _rand(N - 1, n, rng)]
+    elif case == "edge":
+        w, pts = 4, [b, b, None, None, gold.affine_mul(16, a), a]
+    else:
+        w, pts = 4, [c, gold.affine_mul(N - 16, a), a]
+    zs = [v + 1 for v in _rand(P - 1, len(pts), rng)]
+    xyz = [(0, 1 if i == 3 and case == "edge" else z, 0) if q is None
+           else (q[0] * z % P, q[1] * z % P, z)
+           for i, (q, z) in enumerate(zip(pts, zs))]
+    rows = torch.stack([_plane([t[i] for t in xyz]).t() for i in range(3)],
+                       dim=1).contiguous()
+    return rows, pts, w
+
+
+FOLD_CASES = ["w4", "w8", "edge", "cancel"]
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_plain_fold_matches_python_ints_and_the_launch_loop(case):
+    """msm_fold_plain: the python-int Horner sum of the windows, and the
+    projective X, Y, Z of the loop of point_double and point_add wrapper
+    calls that combine_windows made before the fold was one kernel."""
+    rows, pts, w = _fold_rows(case)
+    K.reset_counts()
+    got = msm.combine_windows(rows, w)
+    assert K.PLAIN_CALLS["msm_fold"] == 1 and not any(K.LAUNCHES.values())
+    assert K.PLAIN_CALLS["point_double"] == K.PLAIN_CALLS["point_add"] == 0
+    want = None
+    for q in pts[::-1]:
+        for _ in range(w):
+            want = gold.affine_add(want, want)
+        want = gold.affine_add(want, q)
+    assert _affine(got) == [want]
+    acc = pt.identity((1,), "cpu")
+    for wsum in rows.flip(0):
+        for _ in range(w):
+            acc = pt.double(acc)
+        acc = pt.add(acc, pt.Point(*wsum.unsqueeze(-1)))
+    assert all(torch.equal(g, a) for g, a in zip(got, acc))
+    assert all(torch.equal(g, a) for g, a in
+               zip(got, K.msm_fold_plain(rows, w)))
+
+
+def test_fold_wrapper_checks_its_operands():
+    rows, _, _ = _fold_rows("w8")
+    with pytest.raises(ValueError, match="window sums"):
+        K.msm_fold(rows.to(torch.int64), 8)
+    with pytest.raises(ValueError, match="window_bits"):
+        K.msm_fold(rows, 0)
+    ident = K.msm_fold(rows[:0], 4)
+    assert [int(c[0, 0]) for c in ident] == [0, 1, 0]
 
 
 # ---------------------------------------------------------------------------

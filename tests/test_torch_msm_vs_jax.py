@@ -121,6 +121,38 @@ def test_merge_sums_and_fold_match_jax():
     _same(msm.combine_windows(_t(wsums), 4), fold)
 
 
+def _fold_rows(case):
+    """[W, 3, 16] uint32 window-sum rows and the window bits: "w4" W = 4,
+    w = 4 and "w8" W = 3, w = 8 (random Z); "edge" W = 6, w = 4, least
+    significant first: B, B (equal consecutive sums), the identity
+    (0, Z, 0), the identity (0, 1, 0), 16 A (equal to the accumulator at
+    its add), A."""
+    rng = np.random.default_rng({"w4": 21, "w8": 22, "edge": 23}[case])
+    if case == "edge":
+        a, b = (hc.mul(k + 1, hc.G) for k in _rand(rng, N - 1, 2))
+        w, pts = 4, [b, b, None, None, hc.mul(16, a), a]
+    else:
+        w, n = (4, 4) if case == "w4" else (8, 3)
+        pts = [hc.mul(k + 1, hc.G) for k in _rand(rng, N - 1, n)]
+    zs = [v + 1 for v in _rand(rng, P - 1, len(pts))]
+    xyz = [(0, 1 if i == 3 else z, 0) if q is None
+           else (q[0] * z % P, q[1] * z % P, z)
+           for i, (q, z) in enumerate(zip(pts, zs))]
+    planes = [lb.int_to_limbs_batch([t[i] for t in xyz]).astype(np.uint32)
+              for i in range(3)]
+    return np.stack(planes).transpose(2, 0, 1).copy(), w
+
+
+@pytest.mark.parametrize("case", ["w4", "w8", "edge"])
+def test_fold_matches_jax_combine_windows(case):
+    """The port's combine_windows (one msm_fold; its plain version on the
+    CPU) against the JAX lax.scan fold, projective X, Y, Z bit for bit."""
+    rows, w = _fold_rows(case)
+    want = jax.jit(jmsm.combine_windows, static_argnums=1)(
+        jnp.asarray(rows), w)
+    _same(msm.combine_windows(_t(rows), w), want)
+
+
 def test_lane_table_and_trivial_ladder_match_jax():
     ks, planes = _inputs(4, 8)
     want = jax.jit(jtbl.build_lane_table)(_jax_point(planes))
