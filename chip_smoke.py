@@ -17,7 +17,8 @@ the run with a non-zero exit code:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels from `ops/cuda/csrc` (one nvcc per source,
    in parallel) and the native host library (g++), and prints the
-   seconds, each kernel's registers, stack and spills, the IMMA (int8
+   seconds, each kernel's registers, stack and spills, each kernel's SASS
+   instructions by kind (IMAD.WIDE beside DFMA and the rest), the IMMA (int8
    tensor-core) instructions in `k_base_scan`'s SASS (`cuobjdump -sass`;
    none fails the run) and the resident blocks an SM of the fixed-base
    kernels, `k_point_add` (fewer than 4 fails) and the chain kernel (more
@@ -29,7 +30,13 @@ the run with a non-zero exit code:
    of a few lanes also against python-int curve arithmetic; the engine
    kernels (`point_double4`, `point_add_mixed`, `point_lookup_add`, the
    unsigned GLV #7 and the lane-table GLV #9, whose affine result must
-   equal #7's and #4's), and the fixed-base kernels at their other shapes
+   equal #7's and #4's; #7's and #12's edge lanes also in a second warp,
+   lanes 128 on, and #7's device time at all-zero, all-15 and random
+   digits, a constant-time witness, printed), the two field cores
+   (`csrc/field_probe.cu`: `fe_mul` chains on the integer core, the FP64
+   core, warps split between them and both in one thread, and #12's
+   doublings under each field policy, every mode bit-exact, timed), and
+   the fixed-base kernels at their other shapes
    (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); #5 and #6
    at every width with edge lanes, each the same digit in every window
    (the all-zero scalar, magnitude 0 with the sign bit set, magnitude 1,
@@ -106,10 +113,13 @@ the run with a non-zero exit code:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -251,6 +261,17 @@ PROFILE_ATTEMPTS = 5
 # profiled MSM runs in a process of its own (`--profile-msm`).
 PROFILE_PAD_S = 0.1
 TESTDATA = os.path.join(HERE, "tests", "testdata")
+# The two field cores (csrc/field_probe.cu; no path launches these):
+# k_field_probe's four fe_mul chains a lane, FIELD_PROBE_ITERS rounds, and
+# k_dbl4_probe's four doublings, in each mode (the mode's index is its
+# argument).
+FIELD_PROBE_ITERS = 256
+FIELD_PROBE_MODES = ("int", "f64", "split 1/4 f64", "split 2/4 f64",
+                     "split 3/4 f64", "both in one thread")
+DBL4_PROBE_MODES = ("FieldCanon", "FieldLazy", "FieldF64",
+                    "split FieldCanon/FieldF64")
+SPLIT_LANE = 128        # k_dbl4_probe's split: lanes 128-255 of a block f64
+SASS_MIX: dict = {}     # kernel name -> SASS instruction counts by kind
 
 
 def fail(msg: str) -> None:
@@ -381,6 +402,12 @@ def phase_build():
             f"registers, {rep.get('stack')} bytes stack, "
             f"{rep.get('spill_stores')} bytes spill stores, "
             f"{rep.get('spill_loads')} bytes spill loads")
+    for lib in build.sources():
+        for fn, body in build.sass(lib).items():
+            name = kernel_name(fn)
+            SASS_MIX[name] = sass_mix(body)
+            say(f"sass {lib}.cu {name}: " + ", ".join(
+                f"{kind} {n}" for kind, n in SASS_MIX[name].items()))
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     imma = {fn: sum("IMMA" in line for line in body.splitlines())
             for fn, body in build.sass("base").items()}
@@ -405,6 +432,44 @@ def phase_build():
                  "registers and spill nothing")
     if K.blocks_per_sm("point", "point_add_blocks_per_sm") < 4:
         fail("k_point_add: fewer than 4 blocks of 128 an SM")
+
+
+def kernel_name(mangled: str) -> str:
+    """k_dbl4_probe<3> from _Z12k_dbl4_probeILi3EEv...; k_point_add from
+    _Z11k_point_addPKi..."""
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    name = m.group(2)[:int(m.group(1))]
+    rest = m.group(2)[int(m.group(1)):]
+    t = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+SASS_KINDS = ("IMAD.WIDE", "IMAD", "IADD3", "LOP3", "SHF", "SEL", "PRMT",
+              "DFMA", "DADD", "DMUL", "LDL", "LDL.128", "STL", "STL.128")
+
+
+def sass_mix(body: str) -> dict:
+    """Counts of a kernel's SASS instructions (static, from `cuobjdump
+    -sass`) by kind: the multiply-adds that hold a wide product
+    (IMAD.WIDE), the other IMADs (moves, adds with carry, IMAD.HI), the
+    integer ALU kinds, the FP64 ones, local loads and stores (16-byte ones
+    apart), and the total."""
+    counts = collections.Counter()
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if not m:
+            continue
+        op = m.group(1)
+        base = op.split(".")[0]
+        kind = "IMAD.WIDE" if op.startswith("IMAD.WIDE") else base
+        if base in ("LDL", "STL") and ".128" in op:
+            kind = f"{base}.128"
+        counts[kind] += 1
+        counts["total"] += 1
+    return {k: counts[k] for k in SASS_KINDS + ("total",)}
 
 
 # ---------------------------------------------------------------------------
@@ -1044,6 +1109,10 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     p1[1][:, 16:20] = p1[2][:, 16:20]
     p1[0][:, 16:20] = 0
     p1[2][:, 16:20] = 0
+    # The same 24 lanes again from SPLIT_LANE on: in the FP64 warps of
+    # k_dbl4_probe's split mode.
+    for c in p1:
+        c[:, SPLIT_LANE:SPLIT_LANE + 24] = c[:, :24]
     a = [None if 16 <= i < 20 else pts[i % n_pts] for i in range(24)]
     b = [pts[int(perm[i]) % n_pts] if i >= 16 else
          pts[i % n_pts] if i < 8 else hc.neg(pts[i % n_pts])
@@ -1052,8 +1121,11 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     check("point_double4", "point_double4", got, K.point_double4_plain(*p1),
           lambda: K.point_double4(*p1), lambda: K.point_double4_plain(*p1),
           50, 3, 4 * PT_DOUBLE * lanes, 6 * lane_bytes * lanes)
-    check_points(got, [hc.mul(16, x) if x else None for x in a], hc,
-                 "point_double4")
+    want16 = [hc.mul(16, x) if x else None for x in a]
+    check_points(got, want16, hc, "point_double4")
+    check_points([c[:, SPLIT_LANE:] for c in got], want16, hc,
+                 f"point_double4 lanes {SPLIT_LANE}+")
+    dbl4_probe_checks(int_rate, got, p1, want16, hc, res)
     got = K.point_add_mixed(*p1, ax, ay)
     check("point_add_mixed", "point_add_mixed", got,
           K.point_add_mixed_plain(*p1, ax, ay),
@@ -1096,8 +1168,13 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     d2[:, 26] = 15
     d1[0, 27] = 0
     d2[0, 27] = 0
+    # The same columns again in another warp (lanes 152-155), checked with
+    # lanes SPLIT_LANE to SPLIT_LANE + 31 against python ints.
+    for d in (d1, d2):
+        d[:, SPLIT_LANE + 24:SPLIT_LANE + 28] = d[:, 24:28]
     edge = torch.zeros(lanes, dtype=torch.bool, device=device)
     edge[24:28] = True
+    edge[SPLIT_LANE + 24:SPLIT_LANE + 28] = True
     name = "glv_windowed_mult_from_points"
     unsigned = K.glv_windowed_mult_from_points(d1, d2, gp1, gp2)
     nz = int((d2[0] != 0).sum()) + int((d1[1:] != 0).sum()) \
@@ -1110,20 +1187,32 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
           + (2 * lanes + 4 * 31 * lanes) * PT_DOUBLE,
           (2 * 32 * 4 + 9 * lane_bytes) * lanes)
 
-    def digit_ints(d):
-        vals = d[:, :32].t().tolist()
+    def digit_ints(d, lo):
+        vals = d[:, lo:lo + 32].t().tolist()
         return [sum(v << (4 * (31 - i)) for i, v in enumerate(col))
                 for col in vals]
 
-    def affine_ints(planes, n):
-        xs, ys, zs = (lb.limbs_to_int_batch(c[:, :n]) for c in planes)
-        return [(x * pow(z, -1, hc.P) % hc.P, y * pow(z, -1, hc.P) % hc.P)
-                for x, y, z in zip(xs, ys, zs)]
-    g1, g2 = affine_ints(gp1, 32), affine_ints(gp2, 32)
-    check_points(unsigned, [hc.add(hc.mul(a1, x), hc.mul(a2, y))
-                            for a1, a2, x, y in zip(digit_ints(d1),
-                                                    digit_ints(d2), g1, g2)],
-                 hc, "glv unsigned (#7)")
+    for lo in (0, SPLIT_LANE):
+        g1, g2 = affine_lanes(gp1, lo, 32, hc), affine_lanes(gp2, lo, 32, hc)
+        check_points([c[:, lo:] for c in unsigned],
+                     [hc.add(hc.mul(a1, x), hc.mul(a2, y))
+                      for a1, a2, x, y in zip(digit_ints(d1, lo),
+                                              digit_ints(d2, lo), g1, g2)],
+                     hc, f"glv unsigned (#7) lanes {lo}-{lo + 31}")
+    # Constant-time witness, printed and not gated: the device time at
+    # all-zero digits, at 15 in every window and at the digits above.
+    witness = {}
+    for tag, (w1, w2) in (("all-zero", (torch.zeros_like(d1),) * 2),
+                          ("all-15", (torch.full_like(d1, 15),) * 2),
+                          ("random", (d1, d2))):
+        witness[tag] = kernel_device_ms(
+            lambda w1=w1, w2=w2: K.glv_windowed_mult_from_points(
+                w1, w2, gp1, gp2), 5, KERNEL_SYMBOL[name])[0]
+    res[name]["constant_time_ms"] = witness
+    spread = max(witness.values()) / min(witness.values()) - 1
+    say("kernel glv unsigned (#7) constant-time witness (device ms, cold "
+        "L2): " + ", ".join(f"{t} {ms:.4f}" for t, ms in witness.items())
+        + f"; spread {spread:.2%}")
 
     t1 = tbl.build_lane_table(pt.Point(*gp1))
     t2 = tbl.build_lane_table(pt.Point(*gp2))
@@ -1189,6 +1278,96 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
         check_points([c[:, BASE_EDGE_LANE:] for c in got],
                      [hc.add(g, q) for g, q in zip(want_edge, q_edge)], hc,
                      f"{label} edge lanes")
+
+
+def probe_fn(name, n_ptr, n_int):
+    """A launcher of csrc/field_probe.cu's `name` on the current stream:
+    call(tensors, ints)."""
+    from secp256k1_tpu_torch.ops.cuda import build
+    fn = getattr(build.library("field_probe"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(ptrs, ints):
+        rc = fn(*[t.data_ptr() for t in ptrs], *ints,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{name}: launch failed with error {rc}")
+    return call
+
+
+def dbl4_probe_checks(int_rate, want, p1, want16, hc, res):
+    """k_point_dbl4's four doublings at 256 threads a block under each
+    field policy of DBL4_PROBE_MODES, X, Y, Z against `point_double4`'s
+    (`want`), the edge lanes 0-23 and from SPLIT_LANE on (the FP64 warps of
+    the split) against python ints, each timed (profiler, cold L2)."""
+    call = probe_fn("dbl4_probe", 6, 2)
+    lanes = p1[0].shape[1]
+    times = {}
+    for mode, label in enumerate(DBL4_PROBE_MODES):
+        outs = [torch.empty_like(c) for c in p1]
+        call(p1 + outs, [mode, lanes])
+        err = max_abs_err(outs, want)
+        if err:
+            fail(f"dbl4 probe {label}: differs from point_double4, max abs "
+                 f"err {err}")
+        check_points(outs, want16, hc, f"dbl4 probe {label}")
+        check_points([c[:, SPLIT_LANE:] for c in outs], want16, hc,
+                     f"dbl4 probe {label} lanes {SPLIT_LANE}+")
+        times[label] = kernel_device_ms(
+            lambda mode=mode, outs=outs: call(p1 + outs, [mode, lanes]), 50,
+            "k_dbl4_probe")[0]
+    base = times[DBL4_PROBE_MODES[0]]
+    say("field cores: k_dbl4_probe (k_point_dbl4's doublings, 256 threads "
+        "a block) device ms, cold L2: " + ", ".join(
+            f"{label} {ms:.4f} ({base / ms:.3f}x FieldCanon)"
+            for label, ms in times.items()))
+    res["point_double4"]["field_cores_ms"] = times
+
+
+def field_core_checks(int_rate, rng, device):
+    """k_field_probe in each of FIELD_PROBE_MODES at LANES lanes: four
+    chains a lane of FIELD_PROBE_ITERS products x = x * y mod p, the edge
+    values in lanes 0-6; every mode's words against the int core's and, on
+    lanes 0-6, against python ints; times by CUDA events in turns (3
+    rounds of every mode forth and back, 5 launches each, the median),
+    beside the products bound (4 * iters * lanes products of 76 wide
+    products at the integer rate).  Returns {mode: ms}."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import limbs as lb
+    call = probe_fn("field_probe", 3, 3)
+    lanes, iters = LANES, FIELD_PROBE_ITERS
+    a = torch.cat([random_planes(rng, lanes, fe.P, device)
+                   for _ in range(4)]).contiguous()
+    b = random_planes(rng, lanes, fe.P, device).flip(1).contiguous()
+    outs = {m: torch.empty_like(a) for m in range(len(FIELD_PROBE_MODES))}
+    for m, out in outs.items():
+        call([a, b, out], [m, lanes, iters])
+    for m, out in outs.items():
+        if not torch.equal(out, outs[0]):
+            fail(f"field probe {FIELD_PROBE_MODES[m]}: differs from the int "
+                 "core")
+    ys = lb.limbs_to_int_batch(b[:, :7])
+    for c in range(4):
+        xs = lb.limbs_to_int_batch(a[16 * c:16 * c + 16, :7])
+        got = lb.limbs_to_int_batch(outs[1][16 * c:16 * c + 16, :7])
+        if got != [x * pow(y, iters, fe.P) % fe.P for x, y in zip(xs, ys)]:
+            fail(f"field probe f64: chain {c} differs from python ints")
+    times = {m: [] for m in outs}
+    for _ in range(3):
+        for m in list(outs) + list(outs)[::-1]:
+            times[m].append(cuda_ms(
+                lambda m=m: call([a, b, outs[m]], [m, lanes, iters]), 5))
+    med = {FIELD_PROBE_MODES[m]: sorted(t)[len(t) // 2]
+           for m, t in times.items()}
+    b_ms = 4 * iters * lanes * MUL_P / int_rate * 1e3
+    say(f"field cores: k_field_probe, {4 * iters} products a lane at "
+        f"{lanes} lanes, every mode bit-exact (f64 also against python "
+        f"ints), median ms (bound {b_ms:.4f}): " + ", ".join(
+            f"{label} {ms:.4f} ({med['int'] / ms:.3f}x int)"
+            for label, ms in med.items()))
+    return med
 
 
 class MsmPoints:
@@ -2241,6 +2420,8 @@ def main():
     phase("kernels")
     engine_kernel_checks(int_rate, curve, rng, device, res)
     phase("engine kernels")
+    field_cores = field_core_checks(int_rate, rng, device)
+    phase("field cores")
     msm_data = MsmPoints(curve, rng, device)
     msm_kernel_checks(int_rate, msm_data, rng, device, res)
     phase("bucket kernel")
@@ -2309,7 +2490,9 @@ def main():
                         "replaces": replaces,
                         "launches": sum(per_path.values()),
                         "launches_per_path": per_path, **shapes,
-                        **res[name], "library_ms": None})
+                        **res[name], "library_ms": None,
+                        "sass": SASS_MIX.get(KERNEL_SYMBOL[name])})
+    say(f"field cores (k_field_probe ms): {json.dumps(field_cores)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

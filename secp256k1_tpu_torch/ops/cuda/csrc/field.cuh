@@ -26,7 +26,8 @@
 // carry-chain reduction; for n, c is 129 bits (five words, the top one 1),
 // so the fold takes more rounds, as _reduce_wide does with a multi-limb c.
 // Every function returns a canonical value (< m) from canonical inputs;
-// fe_mul and fe_sqr accept any inputs < 2^256.
+// fe_mul and fe_sqr accept any inputs < 2^256.  The mod-p functions with
+// the reduction deferred (at the end) take and give any values < 2^256.
 //
 // Memory layout at the kernel boundary: int32 planes [16, B] of 16-bit limbs,
 // limb-major, so a warp's 32 threads (32 lanes) read 128 contiguous bytes per
@@ -360,14 +361,14 @@ __device__ __forceinline__ void reduce_wide(const u32 r[16], u32 out[8]) {
   cond_sub<M>(u, out);
 }
 
-// Mod p, the same four rounds as carry chains.  Round 1 splits h * 977 by
+// Mod p, the same four rounds as carry chains, without the conditional
+// subtract: out < 2^256, congruent to r (mod p).  Round 1 splits h * 977 by
 // the parity of h's word: ev = lo + (lo, hi) of h[0, 2, 4, 6] * 977 at
 // words 0..8, od = h (shifted one word) + (lo, hi) of h[1, 3, 5, 7] * 977
 // at words 1..9; t = ev + od < 2^289 (t[9] is 0 or 1).  Round 2 folds
 // H = t[8] + 2^32 t[9] as the three words of H * c.
-template <>
-__device__ __forceinline__ void reduce_wide<ModP>(const u32 r[16],
-                                                  u32 out[8]) {
+__device__ __forceinline__ void reduce_wide_lazy_p(const u32 r[16],
+                                                   u32 out[8]) {
   const u32* h = r + 8;
   u32 ev[9], od[9];  // od[k] is word k + 1
   ev[0] = madlo_cc(h[0], 977u, r[0]);
@@ -403,9 +404,15 @@ __device__ __forceinline__ void reduce_wide<ModP>(const u32 r[16],
 #pragma unroll
   for (int j = 3; j < 8; ++j) s[j] = addc_cc(t[j], 0u);
   const u32 s8 = addc(0u, 0u);
+  const u32 carry = fold_word<ModP>(s, s8, out);
+  fold_word<ModP>(out, carry, out);
+}
+
+template <>
+__device__ __forceinline__ void reduce_wide<ModP>(const u32 r[16],
+                                                  u32 out[8]) {
   u32 u[8];
-  const u32 carry = fold_word<ModP>(s, s8, u);
-  fold_word<ModP>(u, carry, u);
+  reduce_wide_lazy_p(r, u);
   cond_sub<ModP>(u, out);
 }
 
@@ -465,17 +472,86 @@ __device__ __forceinline__ void fe_neg(const u32 b[8], u32 out[8]) {
   fe_sub<M>(zero, b, out);
 }
 
-// a * w mod m for a small word w (b3 = 21): 9 words, two word folds.
+// a * w for a small word w (b3 = 21), below 2^256 and congruent mod m:
+// 9 words, two word folds.
 template <class M>
-__device__ __forceinline__ void fe_mulw(const u32 a[8], u32 w, u32 out[8]) {
+__device__ __forceinline__ void mulw_folded(const u32 a[8], u32 w,
+                                            u32 out[8]) {
   u32 t[8];
   t[0] = a[0] * w;
   t[1] = add_cc(mulhi(a[0], w), a[1] * w);
 #pragma unroll
   for (int j = 2; j < 8; ++j) t[j] = addc_cc(mulhi(a[j - 1], w), a[j] * w);
   const u32 t8 = addc(mulhi(a[7], w), 0u);
+  u32 carry = fold_word<M>(t, t8, out);
+  fold_word<M>(out, carry, out);
+}
+
+// a * w mod m for a small word w, canonical.
+template <class M>
+__device__ __forceinline__ void fe_mulw(const u32 a[8], u32 w, u32 out[8]) {
   u32 u[8];
-  u32 carry = fold_word<M>(t, t8, u);
-  fold_word<M>(u, carry, u);
+  mulw_folded<M>(a, w, u);
   cond_sub<M>(u, out);
+}
+
+// ---------------------------------------------------------------------------
+// Mod p with the reduction deferred: every result is below 2^256 and
+// congruent to the canonical one, but may lie in [p, 2^256); cond_sub<ModP>
+// makes a value canonical.  Inputs are any values below 2^256.  A product
+// skips reduce_wide's conditional subtract (a product by a word is
+// mulw_folded<ModP>); a sum folds a carry out of 2^256 as c = 2^32 + 977
+// in place of comparing with p, and a difference takes c off on a borrow.
+// Either may need that fold twice (a sum of two values in [p, 2^256), a
+// difference a - b below -p), and then the value is within c of 0 or of
+// 2^256, so the second fold touches words 0 and 1 only.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fe_mul_lazy(const u32 a[8], const u32 b[8],
+                                            u32 out[8]) {
+  u32 r[16];
+  mul_wide(a, b, r);
+  reduce_wide_lazy_p(r, out);
+}
+
+__device__ __forceinline__ void fe_sqr_lazy(const u32 a[8], u32 out[8]) {
+  u32 r[16];
+  sqr_wide(a, r);
+  reduce_wide_lazy_p(r, out);
+}
+
+// a + b: a carry out of 2^256 adds c; if that carries too, the value is
+// below c and takes c once more.
+__device__ __forceinline__ void fe_add_lazy(const u32 a[8], const u32 b[8],
+                                            u32 out[8]) {
+  u32 s[8];
+  s[0] = add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) s[j] = addc_cc(a[j], b[j]);
+  u32 carry = addc(0u, 0u);
+  out[0] = add_cc(s[0], carry * 977u);
+  out[1] = addc_cc(s[1], carry);
+#pragma unroll
+  for (int j = 2; j < 8; ++j) out[j] = addc_cc(s[j], 0u);
+  carry = addc(0u, 0u);
+  out[0] = add_cc(out[0], carry * 977u);
+  out[1] = addc(out[1], carry);
+}
+
+// a - b: a borrow takes c off (adds p); if that borrows too, the value is
+// at least 2^256 - c and gives up c once more.
+__device__ __forceinline__ void fe_sub_lazy(const u32 a[8], const u32 b[8],
+                                            u32 out[8]) {
+  u32 d[8];
+  d[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(a[j], b[j]);
+  u32 borrow = subc(0u, 0u) & 1u;
+  out[0] = sub_cc(d[0], borrow * 977u);
+  out[1] = subc_cc(d[1], borrow);
+#pragma unroll
+  for (int j = 2; j < 8; ++j) out[j] = subc_cc(d[j], 0u);
+  borrow = subc(0u, 0u) & 1u;
+  out[0] = sub_cc(out[0], borrow * 977u);
+  out[1] = subc(out[1], borrow);
 }

@@ -34,23 +34,35 @@
 // wide products each (0.55 ms at 65,536 lanes on an H100: 132 SMs x 64 a
 // clock x 1.98 GHz); (unsigned) 2 x 14 table points, 64 lookup-adds and
 // 124 doublings; (prebuilt tables) 64 lookup-adds and 124 doublings past
-// the identity, after reading its two tables once (5,760 B a lane).  On
-// the card each wide product is two multiply-adds (lo and hi), so about
-// twice the bound is the floor of any one-thread-a-lane design.
+// the identity, after reading its two tables once (5,760 B a lane).  What
+// holds them near 4-5x that bound is the schedulers' issue, not a pipe:
+// each wide product is one IMAD.WIDE, and a field product costs about 220
+// instructions in all (the IMAD.WIDE, the carry chains, the reduction's
+// selects); at one wave of 16 warps an SM the field core alone issues
+// about 57 % of the schedulers' peak, waiting on the chains.  So fewer
+// instructions, not another pipe, is the lever: a second field core with
+// its products on the FP64 pipe (field_f64.cuh, bit-exact) needs about 380
+// instructions a product and loses, alone (0.59x) and with warps split
+// between the cores (at best 0.90x; csrc/field_probe.cu, timed by
+// chip_smoke.py).
 //
 // Design: one thread per lane, 128 threads a block, at most 128 registers a
 // thread (__launch_bounds__ with four blocks an SM), so the 65,536 lanes of
 // a verify or ECDH batch run in one wave (132 SMs x 512 threads) instead of
 // 1.3 waves whose second one leaves most SMs idle.  The field core
 // (field.cuh) writes each product row, sum and difference as PTX carry
-// chains, about half the instructions of the 64-bit-accumulator core it
-// replaced.  The tables (2 x 8 x 96 B = 1.5 KB, or 2 x 15 x 96 B = 2.9 KB a
+// chains.  The tables (2 x 8 x 96 B = 1.5 KB, or 2 x 15 x 96 B = 2.9 KB a
 // lane) live in local memory (L1/L2), because registers cannot hold them
 // and shared memory would cap a block at ~100 lanes; the window and step
 // loops are not unrolled, so one copy each of the add and the doubling is
-// compiled.  The design it replaced, the same loop with the 64-bit core at
-// 140 registers (three blocks an SM), took 5.3 ms for the signed form at
-// 65,536 lanes on an H100 80GB HBM3 at 700 W; this one about 2.7 ms.
+// compiled.  k_glv_signed (#4) and k_glv_tables (#9) run on FieldCanon
+// (every sum and product reduced to < p at once).  k_glv_unsigned (#7)
+// runs on FieldLazy (point.cuh: products, sums and differences left below
+// 2^256 and made canonical at the store, about 10 % fewer instructions):
+// 3.03 -> 2.78 ms at 65,536 lanes on an H100 80GB HBM3 at 700 W, the same
+// X, Y, Z.  Two changes to its table scans were tried and dropped (no
+// gain): entries read as 16-byte local loads, and both tables scanned in
+// one pass (both selects live at once, more spills).
 // Cooperative lanes (4-8 threads a lane, products by warp shuffles) were
 // not tried.  The per-lane loop is in glv.cuh.
 #include <cuda_runtime.h>
@@ -78,8 +90,9 @@ __global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)
                    int* oz, int lanes, int n_windows) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  glv_from_points<false, 15>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy,
-                             oz, lanes, n_windows, lane);
+  glv_from_points<false, 15, FieldLazy>(d1, d2, p1x, p1y, p1z, p2x, p2y,
+                                        p2z, ox, oy, oz, lanes, n_windows,
+                                        lane);
 }
 
 __global__ void __launch_bounds__(GLV_THREADS, GLV_MIN_BLOCKS)

@@ -12,19 +12,30 @@
 // X, Y, Z equal the JAX package's and the plain PyTorch formulas'
 // (ops/point.py) bit for bit.
 //
-// Bound: bytes.  Per lane point_add reads 6 planes and writes 3 (9 x 64 B)
-// and does 12 field products and 2 products by b3 (932 32 x 32 -> 64-bit
-// products); on an H100 the 576 bytes take longer than the products.
-// point_double moves 6 planes for 2 squares, 6 products and one by b3;
-// point_double4 the same 6 planes for four times the products (still
-// bytes: 4 x 530 products against 384 B); point_add_mixed 8 planes for 11
-// products and 2 by b3.
+// Bound: bytes for point_add, point_double and point_add_mixed, products
+// for point_double4.  Per lane point_add reads 6 planes and writes 3
+// (9 x 64 B) and does 12 field products and 2 products by b3 (932
+// 32 x 32 -> 64-bit products); on an H100 the 576 bytes take longer than
+// the products.  point_double moves 6 planes for 2 squares, 6 products and
+// one by b3; point_add_mixed 8 planes for 11 products and 2 by b3;
+// point_double4 the same 6 planes for four times point_double's products
+// (4 x 530 against 384 B, so the products bound it).  What holds
+// point_double4 at about 4x its bound is the schedulers' issue (each wide
+// product one IMAD.WIDE among ~220 instructions a field product; 16 warps
+// an SM issue about 57 % of the peak): so it runs its four doublings on
+// FieldLazy (point.cuh: reductions deferred, the result made canonical
+// once at the store), 1,920 instructions a doubling in place of 2,048,
+// 0.0354 -> 0.0334 ms at 65,536 lanes (H100 80GB HBM3, 700 W).  The same
+// doublings with the products on the FP64 pipe (field_f64.cuh), on every
+// warp or on half of each scheduler's, took 0.70x the time of field.cuh's
+// (csrc/field_probe.cu).
 // Design: one thread per lane, 128 threads a block, no shared memory; any
 // B, the ragged edge masked by the lane bound (no padding to a tile).
 // k_point_add is held to 128 registers (it took 140 unbounded, three
 // blocks an SM), so four blocks of 128 fit an SM and 65,536 lanes run in
 // one wave of 512 blocks over 528 slots.  The MSM's lane merge and
-// weighted sums launch it at 960 to 491,520 lanes.
+// weighted sums launch it at 960 to 491,520 lanes.  The other kernels here
+// run on FieldCanon.
 #include <cuda_runtime.h>
 
 #include "point.cuh"
@@ -59,7 +70,8 @@ __global__ void k_point_dbl4(const int* x, const int* y, const int* z,
   Pt p;
   pt_load(x, y, z, lanes, lane, p);
 #pragma unroll 1
-  for (int i = 0; i < 4; ++i) pt_double(p, p);
+  for (int i = 0; i < 4; ++i) pt_double<FieldLazy>(p, p);
+  pt_canon<FieldLazy>(p);
   pt_store(ox, oy, oz, lanes, lane, p);
 }
 

@@ -10,6 +10,10 @@
 // field op here is canonical; the Pallas bodies' lazy reduction changes only
 // non-canonical intermediates.
 //
+// The formulas take their field operations from a policy (FieldCanon,
+// FieldLazy below; FieldF64 in field_f64.cuh): the step order, and so the
+// canonical X, Y, Z at a store, is the same under each.
+//
 // Also the per-lane point tables of the GLV kernels and of point_lookup_add:
 // LocalTable (built in a thread's local memory) and LaneTable (read from
 // global memory), each selecting an entry by a masked scan of all entries.
@@ -19,6 +23,61 @@
 
 struct Pt {
   u32 x[8], y[8], z[8];
+};
+
+// The field operations under the point formulas (mod p).  FieldCanon:
+// field.cuh, every result canonical.  FieldLazy: field.cuh with the
+// reductions deferred (results below 2^256, canonical only after `canon`,
+// which a kernel applies at its store); fewer instructions for the same
+// products.  Either gives the same canonical X, Y, Z at the store.
+struct FieldCanon {
+  __device__ static __forceinline__ void mul(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_mul<ModP>(a, b, o);
+  }
+  __device__ static __forceinline__ void sqr(const u32 a[8], u32 o[8]) {
+    fe_sqr<ModP>(a, o);
+  }
+  __device__ static __forceinline__ void mulw(const u32 a[8], u32 w,
+                                              u32 o[8]) {
+    fe_mulw<ModP>(a, w, o);
+  }
+  __device__ static __forceinline__ void add(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_add<ModP>(a, b, o);
+  }
+  __device__ static __forceinline__ void sub(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_sub<ModP>(a, b, o);
+  }
+  __device__ static __forceinline__ void canon(const u32 a[8], u32 o[8]) {
+    fe_copy(o, a);
+  }
+};
+
+struct FieldLazy {
+  __device__ static __forceinline__ void mul(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_mul_lazy(a, b, o);
+  }
+  __device__ static __forceinline__ void sqr(const u32 a[8], u32 o[8]) {
+    fe_sqr_lazy(a, o);
+  }
+  __device__ static __forceinline__ void mulw(const u32 a[8], u32 w,
+                                              u32 o[8]) {
+    mulw_folded<ModP>(a, w, o);
+  }
+  __device__ static __forceinline__ void add(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_add_lazy(a, b, o);
+  }
+  __device__ static __forceinline__ void sub(const u32 a[8], const u32 b[8],
+                                             u32 o[8]) {
+    fe_sub_lazy(a, b, o);
+  }
+  __device__ static __forceinline__ void canon(const u32 a[8], u32 o[8]) {
+    cond_sub<ModP>(a, o);
+  }
 };
 
 __device__ __forceinline__ void pt_copy(Pt& d, const Pt& s) {
@@ -49,42 +108,51 @@ __device__ __forceinline__ void pt_store(int* x, int* y, int* z, int lanes,
   store_fe(z, lanes, lane, p.z);
 }
 
+// p made canonical in place (a no-op under FieldCanon).
+template <class F>
+__device__ __forceinline__ void pt_canon(Pt& p) {
+  F::canon(p.x, p.x);
+  F::canon(p.y, p.y);
+  F::canon(p.z, p.z);
+}
+
 // r = p + q, RCB Algorithm 7.  r may alias p or q.
+template <class F = FieldCanon>
 __device__ __forceinline__ void pt_add(const Pt& p, const Pt& q, Pt& r) {
   u32 t0[8], t1[8], t2[8], t3[8], t4[8], x3[8], y3[8], z3[8];
-  fe_mul<ModP>(p.x, q.x, t0);
-  fe_mul<ModP>(p.y, q.y, t1);
-  fe_mul<ModP>(p.z, q.z, t2);
-  fe_add<ModP>(p.x, p.y, t3);
-  fe_add<ModP>(q.x, q.y, t4);
-  fe_mul<ModP>(t3, t4, t3);
-  fe_add<ModP>(t0, t1, t4);
-  fe_sub<ModP>(t3, t4, t3);
-  fe_add<ModP>(p.y, p.z, t4);
-  fe_add<ModP>(q.y, q.z, x3);
-  fe_mul<ModP>(t4, x3, t4);
-  fe_add<ModP>(t1, t2, x3);
-  fe_sub<ModP>(t4, x3, t4);
-  fe_add<ModP>(p.x, p.z, x3);
-  fe_add<ModP>(q.x, q.z, y3);
-  fe_mul<ModP>(x3, y3, x3);
-  fe_add<ModP>(t0, t2, y3);
-  fe_sub<ModP>(x3, y3, y3);
-  fe_add<ModP>(t0, t0, x3);
-  fe_add<ModP>(x3, t0, t0);
-  fe_mulw<ModP>(t2, 21u, t2);
-  fe_add<ModP>(t1, t2, z3);
-  fe_sub<ModP>(t1, t2, t1);
-  fe_mulw<ModP>(y3, 21u, y3);
-  fe_mul<ModP>(t4, y3, x3);
-  fe_mul<ModP>(t3, t1, t2);
-  fe_sub<ModP>(t2, x3, x3);
-  fe_mul<ModP>(y3, t0, y3);
-  fe_mul<ModP>(t1, z3, t1);
-  fe_add<ModP>(t1, y3, y3);
-  fe_mul<ModP>(t0, t3, t0);
-  fe_mul<ModP>(z3, t4, z3);
-  fe_add<ModP>(z3, t0, z3);
+  F::mul(p.x, q.x, t0);
+  F::mul(p.y, q.y, t1);
+  F::mul(p.z, q.z, t2);
+  F::add(p.x, p.y, t3);
+  F::add(q.x, q.y, t4);
+  F::mul(t3, t4, t3);
+  F::add(t0, t1, t4);
+  F::sub(t3, t4, t3);
+  F::add(p.y, p.z, t4);
+  F::add(q.y, q.z, x3);
+  F::mul(t4, x3, t4);
+  F::add(t1, t2, x3);
+  F::sub(t4, x3, t4);
+  F::add(p.x, p.z, x3);
+  F::add(q.x, q.z, y3);
+  F::mul(x3, y3, x3);
+  F::add(t0, t2, y3);
+  F::sub(x3, y3, y3);
+  F::add(t0, t0, x3);
+  F::add(x3, t0, t0);
+  F::mulw(t2, 21u, t2);
+  F::add(t1, t2, z3);
+  F::sub(t1, t2, t1);
+  F::mulw(y3, 21u, y3);
+  F::mul(t4, y3, x3);
+  F::mul(t3, t1, t2);
+  F::sub(t2, x3, x3);
+  F::mul(y3, t0, y3);
+  F::mul(t1, z3, t1);
+  F::add(t1, y3, y3);
+  F::mul(t0, t3, t0);
+  F::mul(z3, t4, z3);
+  F::add(z3, t0, z3);
   fe_copy(r.x, x3);
   fe_copy(r.y, y3);
   fe_copy(r.z, z3);
@@ -127,26 +195,27 @@ __device__ __forceinline__ void pt_add_mixed(const Pt& p, const u32 qx[8],
 }
 
 // r = 2p, RCB Algorithm 9.  r may alias p.
+template <class F = FieldCanon>
 __device__ __forceinline__ void pt_double(const Pt& p, Pt& r) {
   u32 t0[8], t1[8], t2[8], x3[8], y3[8], z3[8];
-  fe_sqr<ModP>(p.y, t0);
-  fe_add<ModP>(t0, t0, z3);
-  fe_add<ModP>(z3, z3, z3);
-  fe_add<ModP>(z3, z3, z3);
-  fe_mul<ModP>(p.y, p.z, t1);
-  fe_sqr<ModP>(p.z, t2);
-  fe_mulw<ModP>(t2, 21u, t2);
-  fe_mul<ModP>(t2, z3, x3);
-  fe_add<ModP>(t0, t2, y3);
-  fe_mul<ModP>(t1, z3, z3);
-  fe_add<ModP>(t2, t2, t1);
-  fe_add<ModP>(t1, t2, t2);
-  fe_sub<ModP>(t0, t2, t0);
-  fe_mul<ModP>(t0, y3, y3);
-  fe_add<ModP>(x3, y3, y3);
-  fe_mul<ModP>(p.x, p.y, t1);
-  fe_mul<ModP>(t0, t1, x3);
-  fe_add<ModP>(x3, x3, x3);
+  F::sqr(p.y, t0);
+  F::add(t0, t0, z3);
+  F::add(z3, z3, z3);
+  F::add(z3, z3, z3);
+  F::mul(p.y, p.z, t1);
+  F::sqr(p.z, t2);
+  F::mulw(t2, 21u, t2);
+  F::mul(t2, z3, x3);
+  F::add(t0, t2, y3);
+  F::mul(t1, z3, z3);
+  F::add(t2, t2, t1);
+  F::add(t1, t2, t2);
+  F::sub(t0, t2, t0);
+  F::mul(t0, y3, y3);
+  F::add(x3, y3, y3);
+  F::mul(p.x, p.y, t1);
+  F::mul(t0, t1, x3);
+  F::add(x3, x3, x3);
   fe_copy(r.x, x3);
   fe_copy(r.y, y3);
   fe_copy(r.z, z3);
@@ -195,11 +264,12 @@ template <int E>
 struct LocalTable {
   Pt t[E];
 
+  template <class F = FieldCanon>
   __device__ __forceinline__ void build(const Pt& p) {
     pt_copy(t[0], p);
-    pt_double(t[0], t[1]);
+    pt_double<F>(t[0], t[1]);
 #pragma unroll 1
-    for (int e = 2; e < E; ++e) pt_add(t[e - 1], t[0], t[e]);
+    for (int e = 2; e < E; ++e) pt_add<F>(t[e - 1], t[0], t[e]);
   }
 
   // Every entry copied once from a lane-minor table in global memory, int32
@@ -226,3 +296,4 @@ struct LocalTable {
     }
   }
 };
+

@@ -1,15 +1,19 @@
-"""The CUDA kernels' field core and point formulas, compiled for the host.
+"""The CUDA kernels' field cores and point formulas, compiled for the host.
 
 `secp256k1_tpu_torch/ops/cuda/csrc/field.cuh` writes every multi-word sum,
 difference and product as PTX carry chains; compiled by a plain C++
-compiler it emulates the same primitives with a carry variable.  This file
-builds `field.cuh`, `point.cuh` and the kernels' per-thread bodies with g++
-into a small library (a harness below, one C function a formula over
-arrays of 8-word values) and holds it against python ints (the field
-operations mod p and mod n, the exponentiation chain, the edge values of
+compiler it emulates the same primitives with a carry variable.
+`field_f64.cuh` (products mod p on the FP64 pipe) uses only round-to-nearest
+operations, which the host runs as `std::fma`, `+` and `*` (built with
+`-ffp-contract=off`).  This file builds both, `point.cuh` and the kernels'
+per-thread bodies with g++ into a small library (a harness below, one C
+function a formula over arrays of 8-word values) and holds it against
+python ints (the field operations mod p and mod n, the deferred reductions
+of `FieldLazy`, the FP64 core, the exponentiation chain, the edge values of
 `tests/test_kernel_bodies.py` among them) and against the port's plain
 versions (`ops/cuda/kernels.py`: the same projective X, Y, Z that the
-kernels must give on the card).  Tolerance 0 throughout.
+kernels must give on the card, under each field policy).  Tolerance 0
+throughout.
 
 What this cannot see: the PTX itself (nvcc is not needed here) and the
 kernels' memory layouts; `chip_smoke.py` holds every kernel against its
@@ -38,6 +42,7 @@ HARNESS = r"""
 #include <vector>
 
 #include "base.cuh"
+#include "field_f64.cuh"
 #include "glv.cuh"
 #include "modops.cuh"
 #include "msm.cuh"
@@ -72,6 +77,33 @@ extern "C" void field_ops(int op, int mod, const u32* a, const u32* b,
   else field_op<ModN>(op, a, b, out, n);
 }
 
+// The mod-p field operations under the point formulas, by policy: 0
+// FieldCanon, 1 FieldLazy, 2 FieldF64 (products on the FP64 core); op as
+// field_ops (0 mul, 1 sqr, 2 add, 3 sub, 5 mulw21) or 6 canon.
+template <class F>
+static void policy_op(int op, const u32* x, const u32* y, u32* r) {
+  switch (op) {
+    case 0: F::mul(x, y, r); break;
+    case 1: F::sqr(x, r); break;
+    case 2: F::add(x, y, r); break;
+    case 3: F::sub(x, y, r); break;
+    case 5: F::mulw(x, 21u, r); break;
+    case 6: F::canon(x, r); break;
+  }
+}
+
+extern "C" void policy_ops(int policy, int op, const u32* a, const u32* b,
+                           u32* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const u32* x = a + 8 * i;
+    const u32* y = b + 8 * i;
+    u32* r = out + 8 * i;
+    if (policy == 0) policy_op<FieldCanon>(op, x, y, r);
+    else if (policy == 1) policy_op<FieldLazy>(op, x, y, r);
+    else policy_op<FieldF64>(op, x, y, r);
+  }
+}
+
 static Pt unpack(const u32* w) {
   Pt p;
   for (int k = 0; k < 8; ++k) {
@@ -82,13 +114,27 @@ static Pt unpack(const u32* w) {
   return p;
 }
 
-extern "C" void point_ops(int op, const u32* a, const u32* b, u32* out,
-                          int n) {
+// op 0 pt_add, 1 pt_double, 2 pt_add_mixed, 3 four pt_double (k_point_dbl4)
+// under the field operations F, the result made canonical.
+template <class F>
+static void point_op(int op, const Pt& p, const Pt& q, Pt& r) {
+  if (op == 0) pt_add<F>(p, q, r);
+  else if (op == 1) pt_double<F>(p, r);
+  else if (op == 2) pt_add_mixed(p, q.x, q.y, r);
+  else {
+    r = p;
+    for (int k = 0; k < 4; ++k) pt_double<F>(r, r);
+  }
+  pt_canon<F>(r);
+}
+
+extern "C" void point_ops(int policy, int op, const u32* a, const u32* b,
+                          u32* out, int n) {
   for (int i = 0; i < n; ++i) {
     Pt p = unpack(a + 24 * i), q = unpack(b + 24 * i), r;
-    if (op == 0) pt_add(p, q, r);
-    else if (op == 1) pt_double(p, r);
-    else pt_add_mixed(p, q.x, q.y, r);
+    if (policy == 0) point_op<FieldCanon>(op, p, q, r);
+    else if (policy == 1) point_op<FieldLazy>(op, p, q, r);
+    else point_op<FieldF64>(op, p, q, r);
     for (int k = 0; k < 8; ++k) {
       out[24 * i + k] = r.x[k];
       out[24 * i + 8 + k] = r.y[k];
@@ -138,8 +184,9 @@ extern "C" void msm_buckets(const int* digits, const int* px, const int* py,
 }
 
 // The GLV kernels lane by lane: kind 0 k_glv_signed, 1 k_glv_unsigned
-// (p* the points' planes), 2 k_glv_tables (p1x, p2x the lane tables).
-extern "C" void glv_lanes(int kind, const int* d1, const int* d2,
+// (p* the points' planes; its loop under FieldLazy, or under policy 0
+// FieldCanon or 2 FieldF64), 2 k_glv_tables (p1x, p2x the lane tables).
+extern "C" void glv_lanes(int kind, int policy, const int* d1, const int* d2,
                           const int* p1x, const int* p1y, const int* p1z,
                           const int* p2x, const int* p2y, const int* p2z,
                           int* ox, int* oy, int* oz, int lanes,
@@ -148,9 +195,18 @@ extern "C" void glv_lanes(int kind, const int* d1, const int* d2,
     if (kind == 0)
       glv_from_points<true, 8>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox, oy,
                                oz, lanes, n_windows, lane);
+    else if (kind == 1 && policy == 0)
+      glv_from_points<false, 15, FieldCanon>(d1, d2, p1x, p1y, p1z, p2x, p2y,
+                                          p2z, ox, oy, oz, lanes,
+                                          n_windows, lane);
+    else if (kind == 1 && policy == 2)
+      glv_from_points<false, 15, FieldF64>(d1, d2, p1x, p1y, p1z, p2x, p2y,
+                                          p2z, ox, oy, oz, lanes,
+                                          n_windows, lane);
     else if (kind == 1)
-      glv_from_points<false, 15>(d1, d2, p1x, p1y, p1z, p2x, p2y, p2z, ox,
-                                 oy, oz, lanes, n_windows, lane);
+      glv_from_points<false, 15, FieldLazy>(d1, d2, p1x, p1y, p1z, p2x, p2y,
+                                          p2z, ox, oy, oz, lanes,
+                                          n_windows, lane);
     else
       glv_from_tables(d1, d2, p1x, p2x, ox, oy, oz, lanes, n_windows, lane);
   }
@@ -198,8 +254,8 @@ POINT_OPS = {"add": 0, "double": 1, "add_mixed": 2}
 def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
-    for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh",
-                 "base.cuh", "modops.cuh"):
+    for name in ("field.cuh", "field_f64.cuh", "point.cuh", "msm.cuh",
+                 "glv.cuh", "base.cuh", "modops.cuh"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -211,8 +267,8 @@ def host_lib():
             fh.write(HARNESS)
         tmp = f"{lib}.tmp{os.getpid()}"
         proc = subprocess.run(
-            ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wall",
-             "-I", build.CSRC, "-o", tmp, src],
+            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+             "-fPIC", "-Wall", "-I", build.CSRC, "-o", tmp, src],
             capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
         os.replace(tmp, lib)
@@ -301,6 +357,44 @@ def test_reduction_of_any_512_bit_value(host_lib):
         assert _ints(out) == [v % m for v in vals]
 
 
+POLICIES = {"canon": 0, "lazy": 1, "f64": 2}
+POLICY_CASES = [("f64", "mul"), ("f64", "sqr")] + [
+    ("lazy", op) for op in ("mul", "sqr", "add", "sub", "mulw21", "canon")]
+
+
+@pytest.mark.parametrize("policy,op", POLICY_CASES,
+                         ids=[f"{c}-{o}" for c, o in POLICY_CASES])
+def test_field_cores_match_python_ints(host_lib, policy, op):
+    """The point formulas' other field operations mod p: the FP64 core's
+    products (field_f64.cuh, canonical, also word for word against
+    field.cuh's) and the deferred reductions of FieldLazy (below 2^256 and
+    congruent; `canon` canonical).  Operands: every pair of the edge values
+    of tests/test_kernel_bodies.py and of values in [p, 2^256) (each
+    operand near 2^256 takes the second fold), then random 256-bit pairs."""
+    rng = np.random.default_rng(10 + 7 * POLICIES[policy] + len(op))
+    edge = [0, 1, 2, P - 1, P - 2, 2**255 % P, (P >> 1) + 1, P, P + 1,
+            2**256 - 1, 2**256 - 2, 2**256 - 2**32 - 1, 2**32 + 976]
+    rand = [int.from_bytes(rng.bytes(32), "big") for _ in range(1536)]
+    a = [x for x in edge for _ in edge] + rand
+    b = [y for _ in edge for y in edge] + rand[::-1]
+    aw, bw = _words(a), _words(b)
+    out = np.zeros_like(aw)
+    code = 6 if op == "canon" else FIELD_OPS[op]
+    host_lib.policy_ops(POLICIES[policy], code, _ptr(aw), _ptr(bw),
+                        _ptr(out), len(a))
+    got = _ints(out)
+    if op == "canon":
+        assert got == [x % P for x in a]
+        return
+    assert [v % P for v in got] == [_field_want(op, P, x, y)
+                                    for x, y in zip(a, b)]
+    if policy == "f64":
+        assert got == [_field_want(op, P, x, y) for x, y in zip(a, b)]
+        ref = np.zeros_like(aw)
+        host_lib.field_ops(code, 0, _ptr(aw), _ptr(bw), _ptr(ref), len(a))
+        assert np.array_equal(out, ref)
+
+
 def _point_operands(rng, lanes=48):
     """Projective (P, Q) with random Z: random pairs, P == Q, P == -Q,
     the identity (0, Z, 0) on either side; Q affine for the mixed add."""
@@ -342,7 +436,7 @@ def test_point_formulas_match_the_plain_versions(host_lib, op):
     if op == "add_mixed":
         q = q_aff
     out = np.zeros((len(p), 24), np.uint32)
-    host_lib.point_ops(POINT_OPS[op], _ptr(_xyz_words(p)),
+    host_lib.point_ops(0, POINT_OPS[op], _ptr(_xyz_words(p)),
                        _ptr(_xyz_words(q)), _ptr(out), len(p))
     pp, qq = _planes(p), _planes(q)
     if op == "add":
@@ -355,6 +449,32 @@ def test_point_formulas_match_the_plain_versions(host_lib, op):
         got = _ints(np.ascontiguousarray(out[:, 8 * c:8 * c + 8]))
         assert got == lb.limbs_to_int_batch(want[c])
 
+
+
+CORE_POINT_CASES = [(c, o) for c in POLICIES for o in ("add", "double",
+                                                      "double4")]
+
+
+@pytest.mark.parametrize("policy,op", CORE_POINT_CASES,
+                         ids=[f"{c}-{o}" for c, o in CORE_POINT_CASES])
+def test_point_formulas_on_each_field_core(host_lib, policy, op):
+    """pt_add, pt_double and k_point_dbl4's four doublings under each field
+    policy (the result made canonical, as the kernels store it): X, Y, Z
+    word for word against the plain versions."""
+    rng = np.random.default_rng(50 + 3 * POLICIES[policy] + len(op))
+    p, q, _ = _point_operands(rng, 24)
+    out = np.zeros((len(p), 24), np.uint32)
+    host_lib.point_ops(POLICIES[policy], {"add": 0, "double": 1,
+                                          "double4": 3}[op],
+                       _ptr(_xyz_words(p)), _ptr(_xyz_words(q)), _ptr(out),
+                       len(p))
+    pp, qq = _planes(p), _planes(q)
+    want = {"add": lambda: K.point_add_plain(*pp, *qq),
+            "double": lambda: K.point_double_plain(*pp),
+            "double4": lambda: K.point_double4_plain(*pp)}[op]()
+    for c in range(3):
+        got = _ints(np.ascontiguousarray(out[:, 8 * c:8 * c + 8]))
+        assert got == lb.limbs_to_int_batch(want[c])
 
 # ---------------------------------------------------------------------------
 # The kernels' per-thread bodies: the bucket walk and the GLV loop.
@@ -495,6 +615,17 @@ def test_glv_lanes_match_the_plain_versions(host_lib, kind):
     """The three GLV kernels' lane body at 8 windows: all-zero digit
     columns, magnitude 0 with the sign bit set (window 0 too), magnitude 8
     of either sign, the identity (0, Z, 0) as P1 or P2."""
+    _check_glv_lanes(host_lib, kind, POLICIES["lazy"])
+
+
+@pytest.mark.parametrize("policy", ["canon", "f64"])
+def test_unsigned_glv_lane_on_each_field_core(host_lib, policy):
+    """k_glv_unsigned's lane body under the other field policies than the
+    kernel's own: the same X, Y, Z."""
+    _check_glv_lanes(host_lib, "unsigned", POLICIES[policy])
+
+
+def _check_glv_lanes(host_lib, kind, policy):
     rng = np.random.default_rng({"signed": 1, "unsigned": 2, "tables": 3}[kind])
     lanes, n_windows, signed = 12, 8, kind == "signed"
     d1 = _glv_digits(rng, n_windows, lanes, signed)
@@ -527,7 +658,7 @@ def test_glv_lanes_match_the_plain_versions(host_lib, kind):
     outs = [np.zeros((16, lanes), np.int32) for _ in range(3)]
     a1, a2 = _np32(d1), _np32(d2)
     host_lib.glv_lanes({"signed": 0, "unsigned": 1, "tables": 2}[kind],
-                       _ptr(a1), _ptr(a2),
+                       policy, _ptr(a1), _ptr(a2),
                        *[None if o is None else _ptr(o) for o in ops],
                        *[_ptr(o) for o in outs], lanes, n_windows)
     for got, w in zip(outs, want):
