@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover, its
-BIP-0340 sign and verify, its batched ECDH, its Pippenger and Straus MSM
-and the engines behind the JAX package's switches on one NVIDIA GPU.
+BIP-0340 sign and verify, its batched ECDH, its Pippenger and Straus MSM,
+the engines behind the JAX package's switches, its RFC 9380 hash-to-curve,
+Bitcoin consensus verify and verify service on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
@@ -9,6 +10,7 @@ toolkit (nvcc) and g++:
     python3 chip_smoke.py            # the checks and timings below
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns
     python3 chip_smoke.py --cores    # only the device cores' times
+    python3 chip_smoke.py --glv      # only the three GLV kernels' times
 
 It imports `secp256k1_tpu_torch` from the checkout (never JAX, never the
 JAX package) and runs, each phase printing its lines and any failure ending
@@ -31,8 +33,8 @@ the run with a non-zero exit code:
    kernels (`point_double4`, `point_add_mixed`, `point_lookup_add`, the
    unsigned GLV #7 and the lane-table GLV #9, whose affine result must
    equal #7's and #4's; #7's and #12's edge lanes also in a second warp,
-   lanes 128 on, and #7's device time at all-zero, all-15 and random
-   digits, a constant-time witness, printed), the two field cores
+   lanes 128 on, and #7's and #9's device times at all-zero, all-15 and
+   random digits, a constant-time witness, printed), the two field cores
    (`csrc/field_probe.cu`: `fe_mul` chains on the integer core, the FP64
    core, warps split between them and both in one thread, and #12's
    doublings under each field policy, every mode bit-exact, timed), and
@@ -91,18 +93,39 @@ the run with a non-zero exit code:
      each result against python ints: 256 points a_i * G of known a_i tiled
      over the lanes and a scalar k_j of its own on each lane, so the sum is
      (sum_j k_j a_(j mod 256) mod n) * G;
-   every kernel launch of the ECDH, switch and MSM paths is then held
-   bit-exact against its plain version on the operands it was given;
+   - hash-to-curve: `hash_to_curve_batch` and `encode_to_curve_batch` on
+     65,536 messages with the RFC 9380 suite vectors at known lanes
+     (each its file's P, 256 lanes against a python-int oracle, no
+     identity), then `hash_to_curve_batch_arrays` and
+     `encode_to_curve_batch_arrays` on the same seeded messages (every
+     such lane equal to the list form's), five chain launches a call;
+     `swu.set_uniform_bytes` and `swu.iso_map` at 65,536 lanes with edge
+     lanes (u = 0, the u where tv2 = 0, u = p - 1, strings >= p, the
+     isogeny's pole) against their plain versions on the CPU and python
+     ints;
+   - consensus verify: `bitcoin.verify_asn1_batch_arrays` on the verify
+     batch with a sighash byte after every DER, BIP-0066 vectors that
+     must fail, high s and missing sighash bytes planted, every status;
+   - the verify service: 65,536 requests from two threads into
+     `VerifyService` (max_lanes 16,384), unkeyed and with a key cache of
+     256, every future's bool, with requests/s, batches and the
+     device-busy share of the wall time;
+   every kernel launch of the ECDH, switch, MSM and hash-to-curve arrays
+   paths is then held bit-exact against its plain version on the
+   operands it was given;
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
    DER parse); sign/s end to end with the host DRBG apart and of
    `_sign_e2e_core`; recover/s; keyed verify/s; Schnorr sign/s and verify/s;
    MSM points/s at 2^16, 2^20 and 2^22 points and the bucket kernel's share
    of the 2^20 call; ECDH/s end to end and of `_ecdh_e2e_core` under each
    GLV engine; the verify and sign cores under each fixed-base switch;
-   with `--profile`, the device time by kernel and the idle share of one
-   `_verify_impl`, one `_sign_e2e_core`, one `_ecdh_e2e_core` and one
-   2^20-point `multi_scalar_mult` call (the last in a child process of
-   this script, `--profile-msm`);
+   h2c/s end to end, of `expand_message_xmd_batch` alone and of the
+   `_ro_bytes_core` and `_nu_bytes_core` device cores; consensus verify
+   end to end beside `verify_batch_arrays`; with `--profile`, the device
+   time by kernel and the idle share of one `_verify_impl`, one
+   `_sign_e2e_core`, one `_ecdh_e2e_core`, one `_ro_bytes_core`, one
+   `_nu_bytes_core` and one 2^20-point `multi_scalar_mult` call (the last
+   in a child process of this script, `--profile-msm`);
 6. a `kernels` JSON line (launches summed over the paths, and per path;
    the chain kernel's launches by exponent and width on each path; the
    one-lane `point_add` and `point_double` launches on each path;
@@ -122,6 +145,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -207,6 +231,9 @@ SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
 POINT_KERNELS = ("point_add", "point_double")
 MSM_KERNELS = ("msm_bucket_accumulate_all", "point_add", "msm_fold")
 SCAN_KERNELS = ("point_add", "msm_fold")
+# Hash-to-curve: the map's products, squares and chains; the RO suite's add.
+H2C_NU_KERNELS = SQRT_KERNELS
+H2C_RO_KERNELS = SQRT_KERNELS + ("point_add",)
 # ECDH under each GLV engine, and verify and sign under each fixed-base
 # switch: (label, switch setter arguments, kernels the path must launch).
 ECDH_ENGINES = (
@@ -252,6 +279,7 @@ PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
 CHAIN_SHAPES: dict = {}         # path label -> {"exponent at width": n}
 ONE_LANE: dict = {}             # path label -> {kernel: one-lane launches}
 CORE_ROUNDS = 5                 # --cores: rounds of medians of 7 a core
+GLV_ROUNDS = 3                  # --glv: rounds of each GLV kernel's times
 PROFILE_ATTEMPTS = 5
 # Host seconds of quiet at each end of a profiler session, so that no
 # device work starts or ends at a session's edge.  Late in a run the
@@ -1199,20 +1227,9 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
                       for a1, a2, x, y in zip(digit_ints(d1, lo),
                                               digit_ints(d2, lo), g1, g2)],
                      hc, f"glv unsigned (#7) lanes {lo}-{lo + 31}")
-    # Constant-time witness, printed and not gated: the device time at
-    # all-zero digits, at 15 in every window and at the digits above.
-    witness = {}
-    for tag, (w1, w2) in (("all-zero", (torch.zeros_like(d1),) * 2),
-                          ("all-15", (torch.full_like(d1, 15),) * 2),
-                          ("random", (d1, d2))):
-        witness[tag] = kernel_device_ms(
-            lambda w1=w1, w2=w2: K.glv_windowed_mult_from_points(
-                w1, w2, gp1, gp2), 5, KERNEL_SYMBOL[name])[0]
-    res[name]["constant_time_ms"] = witness
-    spread = max(witness.values()) / min(witness.values()) - 1
-    say("kernel glv unsigned (#7) constant-time witness (device ms, cold "
-        "L2): " + ", ".join(f"{t} {ms:.4f}" for t, ms in witness.items())
-        + f"; spread {spread:.2%}")
+    nibble_witness(res, name, "glv unsigned (#7)", d1, d2,
+                   lambda w1, w2: K.glv_windowed_mult_from_points(
+                       w1, w2, gp1, gp2))
 
     t1 = tbl.build_lane_table(pt.Point(*gp1))
     t2 = tbl.build_lane_table(pt.Point(*gp2))
@@ -1225,6 +1242,8 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
           nz * PT_ADD + int((d1[0] != 0).sum()) * PT_ADD
           + 4 * 31 * lanes * PT_DOUBLE,
           (2 * 15 * 48 * 4 + 2 * 32 * 4 + 3 * lane_bytes) * lanes)
+    nibble_witness(res, name, "glv from lane tables (#9)", d1, d2,
+                   lambda w1, w2: K.glv_windowed_mult(w1, w2, t1, t2))
     aff7, aff9, aff4 = (pt.to_affine(pt.Point(*c))
                         for c in (unsigned, tabled, signed))
     same79 = all(torch.equal(x, y) for x, y in zip(aff7, aff9))
@@ -1278,6 +1297,23 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
         check_points([c[:, BASE_EDGE_LANE:] for c in got],
                      [hc.add(g, q) for g, q in zip(want_edge, q_edge)], hc,
                      f"{label} edge lanes")
+
+
+def nibble_witness(res, name, label, d1, d2, call):
+    """Constant-time witness of an unsigned GLV kernel, printed and not
+    gated: its device time (cold L2) at all-zero digits, at 15 in every
+    window and at the digits d1, d2."""
+    witness = {}
+    for tag, (w1, w2) in (("all-zero", (torch.zeros_like(d1),) * 2),
+                          ("all-15", (torch.full_like(d1, 15),) * 2),
+                          ("random", (d1, d2))):
+        witness[tag] = kernel_device_ms(lambda w1=w1, w2=w2: call(w1, w2), 5,
+                                        KERNEL_SYMBOL[name])[0]
+    res[name]["constant_time_ms"] = witness
+    spread = max(witness.values()) / min(witness.values()) - 1
+    say(f"kernel {label} constant-time witness (device ms, cold L2): "
+        + ", ".join(f"{t} {ms:.4f}" for t, ms in witness.items())
+        + f"; spread {spread:.2%}")
 
 
 def probe_fn(name, n_ptr, n_int):
@@ -1717,7 +1753,7 @@ def main_path(triples, rng, hc, wide):
         pubs, digests, sigs, lens, reject_malleable=True),
         expect={"mod_pow_chain": 2})
     check_statuses(label, got, expected)
-    return pubs, digests, sigs, lens
+    return pubs, digests, sigs, lens, expected
 
 
 # ---------------------------------------------------------------------------
@@ -2147,7 +2183,7 @@ def throughput(triples, arrays, device):
         f" {med[LANES // 2]:.3f} ms at {LANES // 2} lanes; slope "
         f"{slope * 1e3:.4f} us/lane")
 
-    pubs, digests, sigs, lens = arrays
+    pubs, digests, sigs, lens = arrays[:4]
     walls, parses = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
@@ -2282,6 +2318,453 @@ def profile_core(label, fn, expect):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4-5: hash-to-curve, consensus verify and the verify service.
+# ---------------------------------------------------------------------------
+
+H2C_SUITES = {"RO": "secp256k1_XMD_SHA-256_SSWU_RO_.json",
+              "NU": "secp256k1_XMD_SHA-256_SSWU_NU_.json"}
+# A suite vector j sits at lanes j + H2C_VECTOR_STRIDE * t.
+H2C_VECTOR_STRIDE = 20495
+H2C_ORACLE_LANES = 256
+EDGE_CPU_LANES = 1024   # the map's plain version runs on this many lanes
+# u with u^2 = 1/11 = -1/Z, where the map's tv2 is 0 (JAX swu.py:50).
+U_TV2_ZERO = 0x331716177EC001CF0B2A4B9BF5C63274440235BA3DC0AF713237EC866179D785
+# The double root of the isogeny's x_den and triple root of its y_den.
+X_ISO_POLE = 0x89291C84DE3E11F1041DA6957255EED5FC964A4DF050DF221D6AD4CE6AB9C5A5
+SERVICE_LANES = 16384
+SERVICE_KEYS = N_DISTINCT
+
+
+class H2cOracle:
+    """Hash-to-curve in python ints, RFC 9380's straightforward forms
+    (expand_message_xmd 5.3.1, simplified SWU 6.6.2, the 3-isogeny of
+    E.1), not the port's straight-line steps: the constants come from the
+    port's `ops.swu`, which the RFC's tables fix."""
+
+    def __init__(self, hc):
+        from secp256k1_tpu_torch.ops import swu
+        self.hc, self.k = hc, swu
+
+    @staticmethod
+    def expand(msg: bytes, dst: bytes, n_out: int) -> bytes:
+        if len(dst) > 255:
+            dst = hashlib.sha256(b"H2C-OVERSIZE-DST-" + dst).digest()
+        dp = dst + bytes([len(dst)])
+        b0 = hashlib.sha256(bytes(64) + msg + n_out.to_bytes(2, "big")
+                            + b"\x00" + dp).digest()
+        out, prev = b"", bytes(32)
+        for i in range(1, (n_out + 31) // 32 + 1):
+            prev = hashlib.sha256(bytes(a ^ b for a, b in zip(b0, prev))
+                                  + bytes([i]) + dp).digest()
+            out += prev
+        return out[:n_out]
+
+    def inv0(self, x):
+        return pow(x, self.hc.P - 2, self.hc.P)
+
+    def sqrt(self, x):
+        p = self.hc.P
+        r = pow(x, (p + 1) // 4, p)
+        return r if r * r % p == x % p else None
+
+    def sswu(self, u):
+        p, k = self.hc.P, self.k
+        a, b, z = k.A_PRIME, k.B_PRIME, k.Z
+        tv1 = self.inv0((z * z * pow(u, 4, p) + z * u * u) % p)
+        x1 = (-b) * self.inv0(a) * (1 + tv1) % p
+        if tv1 == 0:
+            x1 = b * self.inv0(z * a) % p
+        x2 = z * u * u * x1 % p
+        y1 = self.sqrt((x1 ** 3 + a * x1 + b) % p)
+        x, y = (x1, y1) if y1 is not None else (
+            x2, self.sqrt((x2 ** 3 + a * x2 + b) % p))
+        return x, (y if u % 2 == y % 2 else -y % p)
+
+    def iso(self, x, y):
+        p, k = self.hc.P, self.k
+        x_den = (x * x + k.K21 * x + k.K20) % p
+        y_den = (x ** 3 + k.K42 * x * x + k.K41 * x + k.K40) % p
+        if x_den == 0 or y_den == 0:
+            return None
+        x_num = (k.K13 * x ** 3 + k.K12 * x * x + k.K11 * x + k.K10) % p
+        y_num = (k.K33 * x ** 3 + k.K32 * x * x + k.K31 * x + k.K30) % p
+        return (x_num * self.inv0(x_den) % p,
+                y * y_num * self.inv0(y_den) % p)
+
+    def map(self, uniform48: bytes):
+        u = int.from_bytes(uniform48, "big") % self.hc.P
+        return self.iso(*self.sswu(u))
+
+    def point(self, msg: bytes, dst: bytes, ro: bool):
+        if not ro:
+            return self.map(self.expand(msg, dst, 48))
+        uniform = self.expand(msg, dst, 96)
+        return self.hc.add(self.map(uniform[:48]), self.map(uniform[48:]))
+
+
+class H2cBatch:
+    """LANES seeded 32-byte messages, and the list form with each suite's
+    vector messages at known lanes."""
+
+    def __init__(self, rng):
+        self.msgs = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+        self.suites = {}
+        for suite, fname in H2C_SUITES.items():
+            with open(os.path.join(TESTDATA, fname)) as fh:
+                data = json.load(fh)
+            msg_list = [m.tobytes() for m in self.msgs]
+            at = {}
+            for j, v in enumerate(data["vectors"]):
+                for lane in range(j, LANES, H2C_VECTOR_STRIDE):
+                    msg_list[lane] = v["msg"].encode()
+                    at[lane] = (int(v["P"]["x"], 16), int(v["P"]["y"], 16))
+            self.suites[suite] = (data["dst"].encode(), msg_list, at)
+
+
+def h2c_paths(batch, hc, rng):
+    """hash_to_curve_batch and encode_to_curve_batch on LANES messages with
+    the suite vectors planted (every vector lane its file's P, sampled
+    lanes against python ints, no identity), then the arrays forms on the
+    seeded messages (every lane equal to the list form's where the
+    messages are the same), every launch of the arrays forms held against
+    its plain version."""
+    from secp256k1_tpu_torch.models import h2c
+    oracle = H2cOracle(hc)
+    forms = {"RO": (h2c.hash_to_curve_batch, h2c.hash_to_curve_batch_arrays,
+                    H2C_RO_KERNELS),
+             "NU": (h2c.encode_to_curve_batch,
+                    h2c.encode_to_curve_batch_arrays, H2C_NU_KERNELS)}
+    for suite, (listed, arrays, kernels) in forms.items():
+        dst, msg_list, at = batch.suites[suite]
+        label = f"hash-to-curve {suite} ({LANES} messages, list)"
+        got = run_path(label, kernels, lambda: listed(msg_list, dst),
+                       expect={"mod_pow_chain": 5})
+        if any(g is None for g in got):
+            fail(f"path {label}: an identity lane")
+        wrong = [lane for lane, want in at.items() if got[lane] != want]
+        if wrong:
+            fail(f"path {label}: vector lanes {wrong[:5]} differ from the "
+                 f"suite file's P")
+        picks = rng.choice(np.setdiff1d(np.arange(LANES), list(at)),
+                           H2C_ORACLE_LANES, replace=False)
+        for i in picks:
+            if got[i] != oracle.point(msg_list[i], dst, suite == "RO"):
+                fail(f"path {label}: lane {i} differs from python ints")
+        say(f"path {label}: the {len(at)} vector lanes equal the suite "
+            f"file's P, {len(picks)} sampled lanes equal python ints, no "
+            f"identity")
+        label = f"hash-to-curve {suite} ({LANES} messages, arrays)"
+        pts, ident = run_path(label, kernels,
+                              lambda: arrays(batch.msgs, dst),
+                              replay=kernels, expect={"mod_pow_chain": 5})
+        if pts.shape != (LANES, 64) or ident.any():
+            fail(f"path {label}: shape {pts.shape}, {int(ident.sum())} "
+                 f"identity lanes")
+        xs, ys = ints_of_rows(pts[:, :32]), ints_of_rows(pts[:, 32:])
+        wrong = [i for i in range(LANES)
+                 if i not in at and (xs[i], ys[i]) != got[i]]
+        if wrong:
+            fail(f"path {label}: {len(wrong)} lanes differ from the list "
+                 f"form, first {wrong[:5]}")
+        say(f"path {label}: all {LANES - len(at)} lanes of the same "
+            f"messages equal the list form's points")
+
+
+def h2c_edge_checks(hc, rng, device):
+    """swu.set_uniform_bytes at LANES lanes with the map's edge strings
+    planted (u = 0, u^2 = 1/11 where tv2 = 0, u = p - 1, strings >= p) and
+    iso_map with x' at its pole (mask False, the identity after
+    set_uniform_bytes' select): bit-exact against the plain version (the
+    CPU, first EDGE_CPU_LANES lanes) and python ints."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import point as pt
+    from secp256k1_tpu_torch.ops import swu
+    from secp256k1_tpu_torch.utils import batching as bt
+    oracle = H2cOracle(hc)
+    p = hc.P
+    edge = [0, p, U_TV2_ZERO, p - U_TV2_ZERO, p + U_TV2_ZERO, p - 1, 1,
+            2 * p - 1, 2 ** 384 - 1, (2 ** 384 - 1) // p * p, 2 ** 256]
+    edge += [p + int.from_bytes(rng.bytes(40), "big") for _ in range(5)]
+    uniform = rng.integers(0, 256, (LANES, 48), dtype=np.uint8)
+    lanes = list(range(len(edge))) + [SPLIT_LANE + i for i in range(len(edge))]
+    for i, lane in enumerate(lanes):
+        uniform[lane] = np.frombuffer(
+            edge[i % len(edge)].to_bytes(48, "big"), np.uint8)
+    got = swu.set_uniform_bytes(bt.byte_plane_np(uniform, LANES, device))
+    torch.cuda.synchronize()
+    plain = swu.set_uniform_bytes(bt.byte_plane_np(uniform[:EDGE_CPU_LANES],
+                                                   EDGE_CPU_LANES, "cpu"))
+    err = max_abs_err([c[:, :EDGE_CPU_LANES].cpu() for c in got], plain)
+    if err:
+        fail(f"h2c edge lanes: set_uniform_bytes differs from its plain "
+             f"version, max abs err {err}")
+    checked = lanes + rng.choice(np.arange(2 * SPLIT_LANE, LANES), 64,
+                                 replace=False).tolist()
+    host = [c.cpu().numpy() for c in got]
+    for lane in checked:
+        x, y, z = (lb.limbs_to_int(c[:, lane]) for c in host)
+        want = oracle.map(uniform[lane].tobytes())
+        if (None if z == 0 else (x * pow(z, p - 2, p) % p,
+                                 y * pow(z, p - 2, p) % p)) != want:
+            fail(f"h2c edge lanes: set_uniform_bytes lane {lane} differs "
+                 f"from python ints")
+    say(f"kernel h2c edge lanes: set_uniform_bytes at {LANES} lanes equals "
+        f"its plain version on {EDGE_CPU_LANES} lanes and python ints on "
+        f"{len(checked)} (u = 0, tv2 = 0, p - 1, strings >= p)")
+
+    xs = [int.from_bytes(rng.bytes(32), "big") % p for _ in range(LANES)]
+    ys = [int.from_bytes(rng.bytes(32), "big") % p for _ in range(LANES)]
+    poles = [0, 1, SPLIT_LANE, LANES - 1]
+    for lane in poles:
+        xs[lane] = X_ISO_POLE
+    xo, yo, ok = swu.iso_map(bt.plane(xs, LANES, device=device),
+                             bt.plane(ys, LANES, device=device))
+    torch.cuda.synchronize()
+    px, py, pok = swu.iso_map(
+        bt.plane(xs[:EDGE_CPU_LANES], EDGE_CPU_LANES, device="cpu"),
+        bt.plane(ys[:EDGE_CPU_LANES], EDGE_CPU_LANES, device="cpu"))
+    err = max_abs_err([xo[:, :EDGE_CPU_LANES].cpu(),
+                       yo[:, :EDGE_CPU_LANES].cpu(),
+                       ok[:EDGE_CPU_LANES].cpu().to(torch.int32)],
+                      [px, py, pok.to(torch.int32)])
+    if err:
+        fail(f"h2c edge lanes: iso_map differs from its plain version, max "
+             f"abs err {err}")
+    ok_host = ok.cpu().numpy()
+    if ok_host[poles].any() or int((~ok_host).sum()) != len(poles):
+        fail(f"h2c edge lanes: iso_map's mask is False at "
+             f"{np.nonzero(~ok_host)[0][:8].tolist()}, expected {poles}")
+    xo_host, yo_host = xo.cpu().numpy(), yo.cpu().numpy()
+    for lane in poles + list(range(2, 66)):
+        want = oracle.iso(xs[lane], ys[lane])
+        if want is not None and (lb.limbs_to_int(xo_host[:, lane]),
+                                 lb.limbs_to_int(yo_host[:, lane])) != want:
+            fail(f"h2c edge lanes: iso_map lane {lane} differs from python "
+                 f"ints")
+    # set_uniform_bytes' last step: the identity where the mask is False.
+    q = pt.select(ok, pt.Point(xo, yo, fe.one((LANES,), device)),
+                  pt.identity((LANES,), device))
+    if not torch.equal(pt.is_identity(q), ~ok):
+        fail("h2c edge lanes: the pole lanes do not map to the identity")
+    say(f"kernel h2c edge lanes: iso_map's mask is False exactly at the "
+        f"{len(poles)} lanes of x' = the isogeny's pole, which map to the "
+        f"identity; equal to its plain version on {EDGE_CPU_LANES} lanes "
+        f"and python ints on {len(poles) + 64}")
+
+
+def consensus_path(arrays, rng, hc):
+    """verify_asn1_batch_arrays on the verify batch with a sighash byte
+    after every DER, and lanes corrupted: the BIP-0066 vectors that must
+    fail, high s, a missing sighash byte.  Every status as expected."""
+    from secp256k1_tpu_torch.models import bitcoin, codecs
+    from secp256k1_tpu_torch.utils import errors as ec
+    pubs, digests, der, der_lens, expected = arrays
+    sigs = np.zeros((LANES, 80), np.uint8)
+    sigs[:, :der.shape[1]] = der
+    sigs[np.arange(LANES), der_lens] = rng.integers(0, 256, LANES)
+    lens = der_lens + 1
+    expected = expected.copy()
+    with open(os.path.join(TESTDATA, "bip-0066-test-vectors.json")) as fh:
+        bad_vectors = [bytes.fromhex(c["DER"]) + b"\x01" for c in
+                       json.load(fh)["invalid"]["decode"]]
+    picks = rng.permutation(np.nonzero(expected == ec.OK)[0])
+    per_kind = max(2, LANES // 1024)
+    bip = picks[:per_kind]
+    for k, i in enumerate(bip):
+        sig = bad_vectors[k % len(bad_vectors)]
+        sigs[i] = 0
+        sigs[i, :len(sig)] = np.frombuffer(sig, np.uint8)
+        lens[i] = len(sig)
+    expected[bip] = ec.ERR_INVALID_ENCODING
+    for i in picks[per_kind:2 * per_kind]:            # high s
+        r, s = codecs.parse_asn1_signature(der[i, :der_lens[i]].tobytes())
+        sig = codecs.build_asn1_signature(r, hc.N - s) + b"\x01"
+        sigs[i] = 0
+        sigs[i, :len(sig)] = np.frombuffer(sig, np.uint8)
+        lens[i] = len(sig)
+    expected[picks[per_kind:2 * per_kind]] = ec.ERR_MALLEABLE
+    gone = picks[2 * per_kind:3 * per_kind]           # no sighash byte
+    sigs[gone, der_lens[gone]] = 0
+    lens[gone] = der_lens[gone]
+    expected[gone] = ec.ERR_INVALID_ENCODING
+    label = "consensus verify (BIP-0066, low s)"
+    got = run_path(label, VERIFY_KERNELS,
+                   lambda: bitcoin.verify_asn1_batch_arrays(
+                       pubs, digests, sigs, lens),
+                   expect={"mod_pow_chain": 2})
+    check_statuses(label, got, expected)
+    return pubs, digests, sigs, lens
+
+
+class ServiceRequests:
+    """LANES requests signed by the SERVICE_KEYS seeded signing keys (the
+    RFC 6979 vector keys left out): the ECDSA sign path's lanes, a wrong
+    digest on LANES / 1024 of them and a flipped signature byte on as many.
+    """
+
+    def __init__(self, signers, ecdsa_out, rng):
+        from secp256k1_tpu_torch.models import keys
+        _, _, ders, lens, _ = ecdsa_out
+        kat = len(signers.kat)
+        lanes = np.arange(kat, LANES + kat)
+        lanes[lanes >= LANES] -= LANES - kat           # kat .. 2 kat - 1
+        pubs = [keys.PublicKey(pt) for pt in signers.points[:SERVICE_KEYS]]
+        self.expected = np.ones((LANES,), bool)
+        digests = signers.digests[lanes].copy()
+        sigs = ders[lanes].copy()
+        picks = rng.permutation(LANES)
+        per_kind = max(2, LANES // 1024)
+        digests[picks[:per_kind], 3] ^= 0x40
+        flip = picks[per_kind:2 * per_kind]
+        sigs[flip, lens[lanes[flip]] - 1] ^= 0x01      # the last byte of s
+        self.expected[picks[:2 * per_kind]] = False
+        self.reqs = [(pubs[signers.key_of[lane]], digests[i].tobytes(),
+                      sigs[i, :lens[lane]].tobytes())
+                     for i, lane in enumerate(lanes)]
+
+
+@contextlib.contextmanager
+def device_spans(names):
+    """While open, each call of the ecdsa entry points `names` is timed on
+    the device by CUDA events around it; yields the list of milliseconds."""
+    from secp256k1_tpu_torch.models import ecdsa
+    spans = []
+    real = {name: getattr(ecdsa, name) for name in names}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end))
+            return out
+        return call
+    for name, fn in real.items():
+        setattr(ecdsa, name, timed(fn))
+    try:
+        yield spans
+    finally:
+        for name, fn in real.items():
+            setattr(ecdsa, name, fn)
+
+
+def service_paths(requests, device):
+    """LANES requests from two submitting threads into VerifyService
+    (max_lanes SERVICE_LANES, on the card), then again with a key cache of
+    SERVICE_KEYS: every future's bool as expected; requests/s, batches and
+    the device-busy share of the wall time (CUDA events around each
+    batch's verify call, summed, over the wall time)."""
+    from secp256k1_tpu_torch.models import service
+
+    def drive(svc, spans):
+        futs = [None] * LANES
+
+        def submit(lo):
+            for i in range(lo, LANES, 2):
+                futs[i] = svc.submit(*requests.reqs[i])
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(lo,))
+                   for lo in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        svc.flush()
+        wall = time.perf_counter() - t0
+        got = np.asarray([f.result(timeout=60) for f in futs])
+        return got, wall, sum(spans)
+
+    for tag, capacity, kernels, entry in (
+            ("unkeyed", 0, VERIFY_KERNELS, "verify_batch_arrays"),
+            (f"key cache of {SERVICE_KEYS}", SERVICE_KEYS,
+             VERIFY_CORE_KERNELS, "verify_batch_arrays_keyed")):
+        label = f"verify service ({tag})"
+        svc = service.VerifyService(max_lanes=SERVICE_LANES,
+                                    key_cache_capacity=capacity,
+                                    device=device)
+        try:
+            with device_spans([entry]) as spans:
+                got, wall, busy = run_path(label, kernels,
+                                           lambda: drive(svc, spans))
+            batches = svc.batches
+        finally:
+            svc.close()
+        bad = np.nonzero(got != requests.expected)[0]
+        if bad.size:
+            fail(f"path {label}: {bad.size} futures wrong, first "
+                 f"{bad[:5].tolist()}")
+        if len(spans) != batches:
+            fail(f"path {label}: {len(spans)} {entry} calls for {batches} "
+                 f"batches")
+        say(f"path {label}: every future as expected "
+            f"({int((~requests.expected).sum())} false); {LANES} requests "
+            f"from 2 threads in {wall * 1e3:.1f} ms = {LANES / wall:.1f} "
+            f"requests/s, {batches} batches, device busy {busy:.1f} ms = "
+            f"{busy / (wall * 1e3):.3f} of the wall time")
+
+
+def slice_throughput(batch, consensus, arrays, device):
+    """Hash-to-curve end to end (median of 5), its expand alone (median of
+    5) and its device cores from byte planes (CUDA events, median of 7),
+    with the launches a call makes by kernel; consensus verify end to end
+    beside verify_batch_arrays (median of 5 each, in turns).  Returns the
+    cores' byte planes."""
+    from secp256k1_tpu_torch.models import bitcoin, ecdsa, h2c
+    from secp256k1_tpu_torch.utils import batching as bt
+
+    def rate(ms):
+        return LANES / ms * 1e3
+    planes = {}
+    for suite, n_out, arrays_fn, core in (
+            ("RO", 96, h2c.hash_to_curve_batch_arrays, h2c._ro_bytes_core),
+            ("NU", 48, h2c.encode_to_curve_batch_arrays,
+             h2c._nu_bytes_core)):
+        dst = batch.suites[suite][0]
+        e2e = wall_ms(lambda: arrays_fn(batch.msgs, dst), 5)
+        expand = wall_ms(lambda: h2c.expand_message_xmd_batch(
+            batch.msgs, dst, n_out), 5)
+        uniform = h2c.expand_message_xmd_batch(batch.msgs, dst, n_out)
+        planes[suite] = [bt.byte_plane_np(np.ascontiguousarray(
+            uniform[:, lo:lo + 48]), LANES, device)
+            for lo in range(0, n_out, 48)]
+        med = median_cuda_ms(lambda: core(*planes[suite]))
+        launches = PATH_LAUNCHES[
+            f"hash-to-curve {suite} ({LANES} messages, arrays)"]
+        say(f"throughput: hash-to-curve {suite} arrays end to end "
+            f"{e2e[0]:.1f} ms (median of 5, range {e2e[1]:.1f}-{e2e[2]:.1f})"
+            f" at {LANES} messages = {rate(e2e[0]):.1f} h2c/s; "
+            f"expand_message_xmd_batch alone {expand[0]:.1f} ms (median of "
+            f"5, range {expand[1]:.1f}-{expand[2]:.1f}); {core.__name__} "
+            f"from byte planes {med[0]:.3f} ms (median of 7, range "
+            f"{med[1]:.3f}-{med[2]:.3f}) = {rate(med[0]):.1f} h2c/s; "
+            f"launches a call {({k: v for k, v in launches.items() if v})}")
+    walls = {"verify_asn1_batch_arrays": [], "verify_batch_arrays": []}
+    for _ in range(5):
+        for name, fn in (("verify_asn1_batch_arrays",
+                          lambda: bitcoin.verify_asn1_batch_arrays(
+                              *consensus)),
+                         ("verify_batch_arrays",
+                          lambda: ecdsa.verify_batch_arrays(
+                              *arrays[:4], reject_malleable=True))):
+            walls[name].append(wall_ms(fn, 1)[0])
+    med = {k: sorted(v)[2] for k, v in walls.items()}
+    say(f"throughput: consensus verify_asn1_batch_arrays end to end "
+        f"{med['verify_asn1_batch_arrays']:.1f} ms (median of 5, range "
+        f"{min(walls['verify_asn1_batch_arrays']):.1f}-"
+        f"{max(walls['verify_asn1_batch_arrays']):.1f}) = "
+        f"{rate(med['verify_asn1_batch_arrays']):.1f} verify/s; "
+        f"verify_batch_arrays in turns with it "
+        f"{med['verify_batch_arrays']:.1f} ms (range "
+        f"{min(walls['verify_batch_arrays']):.1f}-"
+        f"{max(walls['verify_batch_arrays']):.1f})")
+    return planes
+
+
+# ---------------------------------------------------------------------------
 # Phase 4-5: the MSM paths and their throughput.
 # ---------------------------------------------------------------------------
 
@@ -2396,11 +2879,67 @@ def cores_only():
             f" {', '.join(f'{x:.3f}' for x in t)})")
 
 
+def glv_only():
+    """`--glv`: the three GLV kernels alone (#4, #7 and #9 on verify's GLV
+    operands at LANES lanes): each one's device time with a cold L2 (the
+    profiler, mean of 5 launches) and warm (CUDA events, median of 7
+    single launches), in GLV_ROUNDS rounds; #9's result against its plain
+    version.  No `ok` line.  For an A/B of two checkouts in one call, as
+    `--cores`."""
+    phase_device()
+    import_port()
+    phase_build()
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import glv
+    from secp256k1_tpu_torch.ops import point as pt
+    from secp256k1_tpu_torch.ops import scalar as sc
+    from secp256k1_tpu_torch.ops import table as tbl
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    _, qx, qy = tiled_points(HostCurve(), rng, LANES, device)
+    q = pt.Point(qx, qy, fe.one((LANES,), device))
+    u2 = random_planes(rng, LANES, sc.N, device)
+    k1, k2, gp1, gp2 = glv._short_scalars(u2, q)
+    gp1, gp2 = pt._planes(gp1), pt._planes(gp2)
+    d1 = glv._nibble_digits_128(k1).contiguous()
+    d2 = glv._nibble_digits_128(k2).contiguous()
+    t1 = tbl.build_lane_table(pt.Point(*gp1))
+    t2 = tbl.build_lane_table(pt.Point(*gp2))
+    signed_ops = glv.glv_kernel_operands(u2, q)
+    calls = {
+        "glv_windowed_mult_signed_from_points":
+            lambda: K.glv_windowed_mult_signed_from_points(*signed_ops),
+        "glv_windowed_mult_from_points":
+            lambda: K.glv_windowed_mult_from_points(d1, d2, gp1, gp2),
+        "glv_windowed_mult": lambda: K.glv_windowed_mult(d1, d2, t1, t2)}
+    err = max_abs_err(calls["glv_windowed_mult"](),
+                      K.glv_windowed_mult_plain(d1, d2, t1, t2))
+    if err:
+        fail(f"glv_windowed_mult differs from its plain version, max abs "
+             f"err {err}")
+    times = {name: ([], []) for name in calls}
+    for _ in range(GLV_ROUNDS):
+        for name, fn in calls.items():
+            times[name][0].append(kernel_device_ms(fn, 5,
+                                                   KERNEL_SYMBOL[name])[0])
+            times[name][1].append(median_cuda_ms(fn)[0])
+    for name, (cold, warm) in times.items():
+        say(f"glv: {name} ({KERNEL_SYMBOL[name]}) at {LANES} lanes: cold L2 "
+            f"{sorted(cold)[len(cold) // 2]:.4f} ms, warm "
+            f"{sorted(warm)[len(warm) // 2]:.4f} ms (medians of "
+            f"{GLV_ROUNDS} rounds: cold "
+            f"{', '.join(f'{x:.4f}' for x in cold)}; warm "
+            f"{', '.join(f'{x:.4f}' for x in warm)})")
+
+
 def main():
     if "--profile-msm" in sys.argv[1:]:
         return profile_msm()
     if "--cores" in sys.argv[1:]:
         return cores_only()
+    if "--glv" in sys.argv[1:]:
+        return glv_only()
     t_start = time.perf_counter()
     marks = [t_start]
 
@@ -2444,10 +2983,20 @@ def main():
     phase("fixed-base switch paths")
     msm_paths(msm_data, rng)
     phase("MSM paths")
+    # The slice's paths draw from a generator of their own, so that the
+    # data of every earlier path stays as it was.
+    slice_rng = np.random.default_rng(SEED + 9)
+    h2c_batch = H2cBatch(slice_rng)
+    h2c_paths(h2c_batch, curve.hc, slice_rng)
+    h2c_edge_checks(curve.hc, slice_rng, device)
+    consensus = consensus_path(arrays, slice_rng, curve.hc)
+    service_paths(ServiceRequests(signers, ecdsa_out, slice_rng), device)
+    phase("hash-to-curve, consensus and service paths")
     throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
     msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
     ecdh_planes = engine_throughput(ecdh_batch, triples, sign_planes, device)
+    h2c_planes = slice_throughput(h2c_batch, consensus, arrays, device)
     phase("throughput")
     if "--profile" in sys.argv[1:]:
         from secp256k1_tpu_torch.models import ecdsa
@@ -2462,6 +3011,13 @@ def main():
         profile_core(f"_ecdh_e2e_core at {LANES} lanes",
                      lambda: ecdh._ecdh_e2e_core(*ecdh_planes),
                      [KERNEL_SYMBOL[name] for name in ECDH_ENGINES[0][2]])
+        from secp256k1_tpu_torch.models import h2c
+        profile_core(f"_ro_bytes_core at {LANES} lanes",
+                     lambda: h2c._ro_bytes_core(*h2c_planes["RO"]),
+                     [KERNEL_SYMBOL[name] for name in H2C_RO_KERNELS])
+        profile_core(f"_nu_bytes_core at {LANES} lanes",
+                     lambda: h2c._nu_bytes_core(*h2c_planes["NU"]),
+                     [KERNEL_SYMBOL[name] for name in H2C_NU_KERNELS])
         child = subprocess.run([sys.executable, os.path.abspath(__file__),
                                 "--profile-msm"], cwd=HERE, timeout=600)
         if child.returncode:

@@ -55,12 +55,13 @@
 // lane) live in local memory (L1/L2), because registers cannot hold them
 // and shared memory would cap a block at ~100 lanes; the window and step
 // loops are not unrolled, so one copy each of the add and the doubling is
-// compiled.  k_glv_signed (#4) and k_glv_tables (#9) run on FieldCanon
-// (every sum and product reduced to < p at once).  k_glv_unsigned (#7)
-// runs on FieldLazy (point.cuh: products, sums and differences left below
+// compiled.  k_glv_signed (#4) runs on FieldCanon (every sum and product
+// reduced to < p at once).  k_glv_unsigned (#7) and k_glv_tables (#9) run
+// on FieldLazy (point.cuh: products, sums and differences left below
 // 2^256 and made canonical at the store, about 10 % fewer instructions):
-// 3.03 -> 2.78 ms at 65,536 lanes on an H100 80GB HBM3 at 700 W, the same
-// X, Y, Z.  Two changes to its table scans were tried and dropped (no
+// #7 3.03 -> 2.78 ms at 65,536 lanes on an H100 80GB HBM3 at 700 W, the
+// same X, Y, Z; #9 takes its canonical tables from global memory as they
+// are.  Two changes to its table scans were tried and dropped (no
 // gain): entries read as 16-byte local loads, and both tables scanned in
 // one pass (both selects live at once, more spills).
 // Cooperative lanes (4-8 threads a lane, products by warp shuffles) were

@@ -5,8 +5,8 @@
 
 #include "point.cuh"
 
-// The loops run on the field operations F (point.cuh): #4 and #9 on
-// FieldCanon, #7 on FieldLazy, its result made canonical at the store.
+// The loops run on the field operations F (point.cuh): #4 on FieldCanon,
+// #7 and #9 on FieldLazy, their results made canonical at the store.
 
 template <bool SIGNED, class F, class Tab>
 __device__ __forceinline__ u32 select_entry(const Tab& tab, int d, Pt& sel) {
@@ -83,6 +83,8 @@ __device__ __forceinline__ void glv_from_points(
 }
 
 // The prebuilt-table form: each lane table read once into a local table.
+// The tables arrive canonical, and FieldLazy takes any input below 2^256.
+template <class F = FieldLazy>
 __device__ __forceinline__ void glv_from_tables(const int* d1, const int* d2,
                                                 const int* t1, const int* t2,
                                                 int* ox, int* oy, int* oz,
@@ -92,7 +94,7 @@ __device__ __forceinline__ void glv_from_tables(const int* d1, const int* d2,
   tab1.load(t1, lanes, lane);
   tab2.load(t2, lanes, lane);
   Pt acc;
-  glv_loop<false, true, FieldCanon>(d1, d2, tab1, tab2, lanes, lane,
-                                    n_windows, acc);
+  glv_loop<false, true, F>(d1, d2, tab1, tab2, lanes, lane, n_windows, acc);
+  pt_canon<F>(acc);
   pt_store(ox, oy, oz, lanes, lane, acc);
 }

@@ -38,6 +38,7 @@ const = F.const
 zero = F.zero
 one = F.one
 from_bytes_any = F.from_bytes_any
+from_wide_bytes = F.from_wide_bytes
 to_bytes = F.to_bytes
 
 

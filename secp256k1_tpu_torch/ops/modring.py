@@ -184,6 +184,13 @@ class ModRing:
         did_reduce = lb.geq_const(x, self.m_limbs)
         return lb.mod_fold(x, self.c_limbs).to(DTYPE), did_reduce
 
+    def from_wide_bytes(self, byts):
+        """[W <= 64, B] big-endian bytes -> the fully reduced element (the
+        48-byte strings of hash-to-curve: 24 limbs into `lb.mod_fold`)."""
+        if byts.shape[0] > 64:
+            raise ValueError(f"at most 64 bytes a lane, got {byts.shape[0]}")
+        return lb.mod_fold(self._bytes_to_limbs(byts), self.c_limbs).to(DTYPE)
+
     def to_bytes(self, x):
         """[16, B] canonical element -> [32, B] big-endian bytes (0..255)."""
         x = x.flip(0)

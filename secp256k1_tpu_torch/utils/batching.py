@@ -67,6 +67,18 @@ def scalar_plane(vals, b: int, fill=0, dtype=torch.int32,
     return torch.as_tensor(arr, dtype=dtype, device=resolve_device(device))
 
 
+def byte_plane(chunks, b: int, fill: bytes | None = None,
+               device=None) -> torch.Tensor:
+    """List of equal-width byte strings -> [W, b] uint8 plane on `device`;
+    lanes past the list take `fill` (zeros by default)."""
+    w = len(chunks[0]) if chunks else len(fill)
+    if fill is None:
+        fill = b"\x00" * w
+    arr = np.frombuffer(b"".join(pad_vals(chunks, b, fill)), np.uint8)
+    return torch.as_tensor(np.ascontiguousarray(arr.reshape(b, w).T),
+                           device=resolve_device(device))
+
+
 def byte_plane_np(arr: np.ndarray, b: int, device=None) -> torch.Tensor:
     """[n, W] u8 numpy array -> [W, b] uint8 plane on `device`; lanes past
     n repeat the last row (keeps the padded batch well-formed)."""

@@ -185,7 +185,8 @@ extern "C" void msm_buckets(const int* digits, const int* px, const int* py,
 
 // The GLV kernels lane by lane: kind 0 k_glv_signed, 1 k_glv_unsigned
 // (p* the points' planes; its loop under FieldLazy, or under policy 0
-// FieldCanon or 2 FieldF64), 2 k_glv_tables (p1x, p2x the lane tables).
+// FieldCanon or 2 FieldF64), 2 k_glv_tables (p1x, p2x the lane tables;
+// its loop under FieldLazy, or under policy 0 FieldCanon).
 extern "C" void glv_lanes(int kind, int policy, const int* d1, const int* d2,
                           const int* p1x, const int* p1y, const int* p1z,
                           const int* p2x, const int* p2y, const int* p2z,
@@ -207,6 +208,9 @@ extern "C" void glv_lanes(int kind, int policy, const int* d1, const int* d2,
       glv_from_points<false, 15, FieldLazy>(d1, d2, p1x, p1y, p1z, p2x, p2y,
                                           p2z, ox, oy, oz, lanes,
                                           n_windows, lane);
+    else if (policy == 0)
+      glv_from_tables<FieldCanon>(d1, d2, p1x, p2x, ox, oy, oz, lanes,
+                                  n_windows, lane);
     else
       glv_from_tables(d1, d2, p1x, p2x, ox, oy, oz, lanes, n_windows, lane);
   }
@@ -623,6 +627,12 @@ def test_unsigned_glv_lane_on_each_field_core(host_lib, policy):
     """k_glv_unsigned's lane body under the other field policies than the
     kernel's own: the same X, Y, Z."""
     _check_glv_lanes(host_lib, "unsigned", POLICIES[policy])
+
+
+def test_table_glv_lane_on_the_canonical_field_core(host_lib):
+    """k_glv_tables' lane body under FieldCanon, the policy it ran on
+    before FieldLazy: the same X, Y, Z."""
+    _check_glv_lanes(host_lib, "tables", POLICIES["canon"])
 
 
 def _check_glv_lanes(host_lib, kind, policy):

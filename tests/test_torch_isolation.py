@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for m in ("models.ecdsa", "models.schnorr", "models.keys",
               "models.rfc6979", "models.tuplehash", "models.ecdh", "native",
               "utils.config", "ops.cuda.kernels", "ops.msm", "ops.table",
-              "ops.point", "ops.glv", "convert"):
+              "ops.point", "ops.glv", "ops.swu", "models.h2c",
+              "models.bitcoin", "models.service", "convert"):
         assert f"secp256k1_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -108,6 +109,31 @@ def test_signing_entry_points_raise_without_a_gpu():
             call()
 
 
+def test_slice_entry_points_raise_without_a_gpu():
+    """Hash-to-curve, consensus verify and the verify service."""
+    _need_no_gpu()
+    from secp256k1_tpu_torch.models import bitcoin, h2c, service
+    msgs = np.zeros((1, 4), np.uint8)
+    pub = keys.PrivateKey(5).public_key
+    calls = [
+        lambda: h2c.hash_to_curve_batch([b"m"], b"DST"),
+        lambda: h2c.encode_to_curve_batch([b"m"], b"DST"),
+        lambda: h2c.hash_to_curve_batch_arrays(msgs, b"DST"),
+        lambda: h2c.encode_to_curve_batch_arrays(msgs, b"DST"),
+        lambda: h2c.hash_to_curve(b"m", b"DST"),
+        lambda: h2c.encode_to_curve(b"m", b"DST"),
+        lambda: bitcoin.verify_asn1(pub, bytes(32), bytes(9)),
+        lambda: bitcoin.verify_asn1_batch([pub], [bytes(32)], [bytes(9)]),
+        lambda: bitcoin.verify_asn1_batch_arrays(
+            np.full((1, 33), 2, np.uint8), np.zeros((1, 32), np.uint8),
+            np.zeros((1, 9), np.uint8), np.full((1,), 9, np.int32)),
+        lambda: service.VerifyService(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_native_build_failure_raises(monkeypatch, tmp_path):
     """A failed g++ build raises; nothing falls back to Python."""
     monkeypatch.setattr(native, "_LIB", None)
@@ -118,6 +144,19 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
         native.sha256_batch(np.zeros((1, 4), np.uint8))
     assert not os.listdir(tmp_path / "build" / os.listdir(
         tmp_path / "build")[0])
+
+
+def test_expand_message_xmd_batch_raises_without_the_native_library(
+        monkeypatch, tmp_path):
+    """The batch expand hashes natively or raises: no per-lane fallback
+    (the JAX package falls back to hashlib there)."""
+    from secp256k1_tpu_torch.models import h2c
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SRC", str(tmp_path / "missing.cpp"))
+    (tmp_path / "missing.cpp").write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        h2c.expand_message_xmd_batch(np.zeros((2, 4), np.uint8), b"DST", 48)
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
