@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's batched ECDSA verify, sign and recover, its
 BIP-0340 sign and verify, its batched ECDH, its Pippenger and Straus MSM,
 the engines behind the JAX package's switches, its RFC 9380 hash-to-curve,
-Bitcoin consensus verify and verify service on one NVIDIA GPU.
+Bitcoin consensus verify and verify service, and its sharded verify and
+MSM on `torch.distributed`, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
@@ -126,7 +127,26 @@ the run with a non-zero exit code:
    `_sign_e2e_core`, one `_ecdh_e2e_core`, one `_ro_bytes_core`, one
    `_nu_bytes_core` and one 2^20-point `multi_scalar_mult` call (the last
    in a child process of this script, `--profile-msm`);
-6. a `kernels` JSON line (launches summed over the paths, and per path;
+6. sharding (one card hosts one NCCL rank, so at world size 1, the
+   backend and world size printed; the process group destroyed at the
+   end): `sharded_verify_fn` on the verify planes of phase 5 with r
+   changed on every 8th lane, every gathered status equal to
+   `_verify_impl`'s; `sharded_msm` on 2^20 points (w = 4) against python
+   ints and, X, Y, Z, `multi_scalar_mult`; the split form on four
+   virtual shards of 2^18 points (`local_fn` on each, `_tree_reduce`,
+   `combine_windows`) against python ints, and composed against
+   `sharded_msm`; the rates beside the unsharded ones and the split
+   stages' times; `ModRing.pow_const` (small, chain, random and split
+   exponents), `product_lanes`, `sum_lanes` and `bytes_are_canonical`
+   mod p and mod n at 65,536 lanes against python ints; each a path with
+   its launches counted and its kernels' launches replayed through their
+   plain versions (the 2^20-point bucket walk is replayed by the MSM
+   path only); `profiling.trace` of `entry()` in a child process of this
+   script, `--trace-entry` (its Chrome trace must name the verify
+   kernels), `timed_chain` of `_verify_impl` beside
+   phase 5's median and `roofline_report` of `point_add` (its bound must
+   be the kernel row's);
+7. a `kernels` JSON line (launches summed over the paths, and per path;
    the chain kernel's launches by exponent and width on each path; the
    one-lane `point_add` and `point_double` launches on each path;
    `glv_windowed_mult`, which no path of either package calls, and
@@ -156,25 +176,18 @@ LANES = 65536
 N_DISTINCT = 256
 SEED = 20261016
 
-# Published H100 SXM figures used for the bounds (NVIDIA data sheet; CUDA
-# C++ Programming Guide, arithmetic instruction throughput for compute
-# capability 9.0: 64 results per clock per SM for 32-bit integer
-# multiply-add; H100 architecture whitepaper: 4 tensor cores an SM, each
-# 1,024 dense int8 multiply-adds a clock).  The SM count and maximum SM
-# clock are read from the card.
-HBM_BYTES_PER_S = 3.35e12
-INT_MAD_PER_CLOCK_PER_SM = 64
-INT8_MAC_PER_CLOCK_PER_SM = 4096
-
-# 32 x 32 -> 64-bit products per lane, counted from csrc/field.cuh and
-# csrc/point.cuh (a product by a constant word 1 compiles to no multiply):
-# schoolbook 64, square 36; the fold mod p (c = 2^32 + 977) 8 + 2 + 1 + 1,
-# mod n (c of five words, the top one 1) 32 + 20 + 4 + 4; a product by
-# b3 = 21 is 8 + 1 + 1.
-MUL_P, SQR_P, MUL_N, SQR_N, MULW_P = 64 + 12, 36 + 12, 64 + 60, 36 + 60, 10
-PT_ADD = 12 * MUL_P + 2 * MULW_P          # RCB Algorithm 7
-PT_ADD_MIXED = 11 * MUL_P + 2 * MULW_P    # Algorithm 8
-PT_DOUBLE = 2 * SQR_P + 6 * MUL_P + MULW_P  # Algorithm 9
+# The H100 yardstick of the bounds (published rates, products a lane of
+# each field and point operation) is the port's own, `utils/profiling.py`,
+# so that this script and the port cannot drift apart.
+sys.path.insert(0, HERE)
+try:
+    from secp256k1_tpu_torch.utils.profiling import (  # noqa: E402
+        MUL_N, MUL_P, MULW_P, PT_ADD, PT_ADD_MIXED, PT_DOUBLE, SQR_N, SQR_P,
+        bound_ms, bound_terms, int8_rate, max_sm_clock_mhz, peak_int_rate)
+except ImportError as exc:
+    print(f"FAIL: the port is not beside this script ({exc}): run it from "
+          "the root of a checkout", flush=True)
+    sys.exit(1)
 
 PALLAS = "secp256k1_tpu/ops/pallas/kernels.py"
 CSRC = "secp256k1_tpu_torch/ops/cuda/csrc"
@@ -275,6 +288,12 @@ MSM_POINTS = 1 << 20             # the MSM path and the bucket kernel's time
 MSM_CHECK_POINTS = 1 << 14       # bucket kernel vs plain; sort + scan call
 MSM_STRAUS_POINTS = 64
 MSM_RATE_SIZES = (1 << 16, 1 << 20, 1 << 22)
+# The sharding phase: the split form's virtual shards of the MSM_POINTS
+# points (2^18 each, the bucket path at w = 4) and the lanes of each
+# pow_const result held against python ints.
+SPLIT_SHARDS = 4
+SHARD_WINDOW = 4
+POW_CONST_CHECK_LANES = 1024
 PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
 CHAIN_SHAPES: dict = {}         # path label -> {"exponent at width": n}
 ONE_LANE: dict = {}             # path label -> {kernel: one-lane launches}
@@ -391,10 +410,9 @@ def phase_device():
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script drives the port on a GPU")
     say(smi("name,power.limit"))
-    sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    sm_clock_mhz = max_sm_clock_mhz()
     props = torch.cuda.get_device_properties(0)
-    int_rate = props.multi_processor_count * INT_MAD_PER_CLOCK_PER_SM \
-        * sm_clock_mhz * 1e6
+    int_rate = peak_int_rate(props.multi_processor_count, sm_clock_mhz)
     say(f"device: {torch.cuda.get_device_name(0)}, "
         f"{props.multi_processor_count} SMs, max SM clock {sm_clock_mhz} MHz,"
         f" torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -669,31 +687,6 @@ def random_planes(rng, lanes, modulus, device):
     edge = edge[:lanes]
     arr[:, :len(edge)] = lb.int_to_limbs_batch(edge)
     return torch.as_tensor(arr, dtype=torch.int32, device=device)
-
-
-def int8_rate(int_rate):
-    """Dense int8 MMA operations a second (two a multiply-add) at the SM
-    count and clock that set `int_rate`."""
-    return int_rate / INT_MAD_PER_CLOCK_PER_SM * INT8_MAC_PER_CLOCK_PER_SM * 2
-
-
-def bound_terms(int_rate, products_total, bytes_total, mma_ops=0):
-    """Milliseconds of each term of the bound: the 32-bit products over
-    the integer multiply-add rate, the int8 MMA operations over the dense
-    int8 tensor rate (the two units run side by side), the bytes over the
-    HBM rate."""
-    return {"products": products_total / int_rate * 1e3,
-            "int8_mma": mma_ops / int8_rate(int_rate) * 1e3,
-            "bytes": bytes_total / HBM_BYTES_PER_S * 1e3}
-
-
-def bound_ms(int_rate, products_total, bytes_total, mma_ops=0):
-    """(least milliseconds, what sets it): the largest term of
-    `bound_terms`."""
-    terms = bound_terms(int_rate, products_total, bytes_total, mma_ops)
-    t_ops = max(terms["products"], terms["int8_mma"])
-    return (t_ops, "operations") if t_ops >= terms["bytes"] \
-        else (terms["bytes"], "bytes")
 
 
 def random_z(xs, ys, rng, device):
@@ -1672,6 +1665,8 @@ def replay_plain(label, calls):
     for name, recs in calls.items():
         plain = getattr(K, f"{name}_plain")
         recs = [r for r in recs if r[0][0].shape[1]]     # skip empty batches
+        if not recs:
+            continue
         err = max(max_abs_err(outs, as_tuple(plain(*args, **kwargs)))
                   for args, kwargs, outs in recs)
         # lanes; the fold's [W, 3, 16] window sums: W
@@ -2201,6 +2196,7 @@ def throughput(triples, arrays, device):
         f" at {LANES} lanes = {LANES / wall:.1f} verify/s; its host "
         f"strict-DER parse alone {parse * 1e3:.1f} ms (median of 5); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return med[LANES]
 
 
 def wall_ms(fn, reps: int):
@@ -2825,6 +2821,268 @@ def msm_throughput(data, rng, bucket_ms):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: sharding on torch.distributed, the new ring functions, profiling.
+# ---------------------------------------------------------------------------
+
+def sharded_verify_path(mesh, triples, device):
+    """sharded_verify_fn on the 65,536-lane verify planes of phase 5, r
+    changed on every 8th lane: every status, gathered, equal to
+    _verify_impl's; then the two rates in turns.  Returns the shards."""
+    from secp256k1_tpu_torch.models import ecdsa
+    from secp256k1_tpu_torch.parallel import mesh as meshmod
+    from secp256k1_tpu_torch.parallel import sharded
+    planes = list(core_planes(triples, LANES, device))
+    planes[3] = planes[3].clone()
+    planes[3][0, ::8] ^= 1
+    want = ecdsa._verify_impl(*planes).cpu().numpy()
+    if (want[::8] == 0).any() or (np.delete(want, np.s_[::8]) != 0).any():
+        fail("sharded verify: _verify_impl did not reject exactly the "
+             "lanes with a changed r")
+    verify = sharded.sharded_verify_fn(mesh)
+    shards = meshmod.shard_batch(mesh, planes)
+    label = f"sharded verify (world {mesh.size()}, {LANES} lanes)"
+    got = run_path(label, VERIFY_CORE_KERNELS,
+                   lambda: meshmod.gather_batch(mesh, verify(*shards)),
+                   replay=VERIFY_CORE_KERNELS, expect={"mod_pow_chain": 1})
+    check_statuses(label, got.cpu().numpy(), want)
+    times = {"sharded_verify_fn": [], "_verify_impl": []}
+    for _ in range(7):
+        times["sharded_verify_fn"].append(cuda_ms(
+            lambda: verify(*shards), 1, warmup=0))
+        times["_verify_impl"].append(cuda_ms(
+            lambda: ecdsa._verify_impl(*planes), 1, warmup=0))
+    med = {k: sorted(v)[3] for k, v in times.items()}
+    say(f"throughput ({smi('name,power.limit')}): sharded_verify_fn at "
+        f"world {mesh.size()} {med['sharded_verify_fn']:.3f} ms = "
+        f"{LANES / med['sharded_verify_fn'] * 1e3:.1f} verify/s; "
+        f"_verify_impl in turns with it {med['_verify_impl']:.3f} ms = "
+        f"{LANES / med['_verify_impl'] * 1e3:.1f} verify/s (medians of 7, "
+        f"CUDA events)")
+    return planes
+
+
+def sharded_msm_paths(mesh, data, rng):
+    """sharded_msm on MSM_POINTS points (w = 4, the bucket path) against
+    python ints and, X, Y, Z, against multi_scalar_mult; the split form on
+    SPLIT_SHARDS virtual shards (local_fn on each slice one after another,
+    the window sums stacked, _tree_reduce, combine_windows) against python
+    ints, every point_add launch of its lane merges and tree replayed; the
+    split form composed against sharded_msm; then points/s and the
+    stages' times."""
+    from secp256k1_tpu_torch.ops import msm
+    from secp256k1_tpu_torch.ops import point as pt
+    from secp256k1_tpu_torch.parallel import mesh as meshmod
+    from secp256k1_tpu_torch.parallel import sharded
+    hc = data.curve.hc
+    w = SHARD_WINDOW
+    k, p, want = data.batch(MSM_POINTS, rng)
+    k_sh, p_sh = meshmod.shard_batch(mesh, (k, p))
+    label = f"sharded msm (world {mesh.size()}, {MSM_POINTS} points, w={w})"
+    got = run_path(label, MSM_KERNELS,
+                   lambda: sharded.sharded_msm(mesh, k_sh, p_sh, w),
+                   replay=("point_add", "msm_fold"),
+                   expect={"msm_fold": 1, "point_double": 0,
+                           "point_add at 1": 0})
+    check_points(got, [want], hc, f"path {label}")
+    whole = msm.multi_scalar_mult(k, p, w)
+    if not all(torch.equal(a, b) for a, b in zip(got, whole)):
+        fail(f"path {label}: X, Y, Z differ from multi_scalar_mult's")
+    say(f"path {label}: X, Y, Z equal multi_scalar_mult's")
+
+    local_fn, combine_fn = sharded.sharded_msm_split(mesh, w)
+    step = MSM_POINTS // SPLIT_SHARDS
+    slices = [(k[:, i:i + step], pt.Point(*(c[:, i:i + step] for c in p)))
+              for i in range(0, MSM_POINTS, step)]
+
+    def split():
+        wsums = torch.stack([local_fn(*sl) for sl in slices])
+        return msm.combine_windows(sharded._tree_reduce(wsums), w)
+    label = (f"split msm ({SPLIT_SHARDS} virtual shards of {step} points, "
+             f"w={w})")
+    got = run_path(label, MSM_KERNELS, split, replay=("point_add",),
+                   expect={"msm_bucket_accumulate_all": SPLIT_SHARDS,
+                           "msm_fold": 1, "point_double": 0,
+                           "point_add at 1": 0})
+    check_points(got, [want], hc, f"path {label}")
+    composed = combine_fn(local_fn(k_sh, p_sh))
+    if not all(torch.equal(a, b) for a, b in zip(composed,
+                                                 sharded.sharded_msm(
+                                                     mesh, k_sh, p_sh, w))):
+        fail("split msm: combine_fn(local_fn(...)) differs from sharded_msm")
+    say("path split msm: combine_fn(local_fn(...)) equals sharded_msm, "
+        "X, Y, Z")
+
+    med = {}
+    for name, fn in (("sharded_msm", lambda: sharded.sharded_msm(
+            mesh, k_sh, p_sh, w)),
+            ("multi_scalar_mult", lambda: msm.multi_scalar_mult(k, p, w))):
+        med[name] = median_cuda_ms(fn, 5)
+    wsums = torch.stack([local_fn(*sl) for sl in slices])
+    local_ms = median_cuda_ms(lambda: local_fn(*slices[0]), 5)
+    tree_ms = median_cuda_ms(lambda: msm.combine_windows(
+        sharded._tree_reduce(wsums), w), 5)
+    gather_ms = median_cuda_ms(lambda: combine_fn(wsums[0]), 5)
+    say(f"throughput ({smi('name,power.limit')}): sharded_msm at world "
+        f"{mesh.size()}, {MSM_POINTS} points, w={w}: "
+        f"{med['sharded_msm'][0]:.3f} ms (median of 5, range "
+        f"{med['sharded_msm'][1]:.3f}-{med['sharded_msm'][2]:.3f}) = "
+        f"{MSM_POINTS / med['sharded_msm'][0] * 1e3:.1f} points/s; "
+        f"multi_scalar_mult {med['multi_scalar_mult'][0]:.3f} ms = "
+        f"{MSM_POINTS / med['multi_scalar_mult'][0] * 1e3:.1f} points/s")
+    say(f"throughput: split msm stages: local_fn on one {step}-point shard "
+        f"{local_ms[0]:.3f} ms (median of 5); the {SPLIT_SHARDS}-shard tree "
+        f"and window fold {tree_ms[0]:.3f} ms; combine_fn at world "
+        f"{mesh.size()} (all-gather and fold) {gather_ms[0]:.3f} ms")
+
+
+def ring_function_paths(rng, device):
+    """pow_const (edge values of x in the first lanes; exponents small,
+    the chains' own, random and one split into parts) against python ints
+    on POW_CONST_CHECK_LANES lanes; product_lanes and sum_lanes against
+    python ints over every lane; bytes_are_canonical at the edge values,
+    every lane; all at LANES lanes, launches counted, the kernels'
+    launches replayed."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import modring
+    from secp256k1_tpu_torch.ops import scalar as sc
+    for ring, m, mod in ((fe.F, P_FIELD, "p"), (sc.S, N_ORDER, "n")):
+        x = random_planes(rng, LANES, m, device)
+        cols = torch.arange(POW_CONST_CHECK_LANES, device=device)
+        xs = lb.limbs_to_int_batch(x[:, cols])
+        exps = {"1": 1, "3": 3, "65537": 65537, "m-2": m - 2,
+                "random": int.from_bytes(rng.bytes(32), "big"),
+                "alternating": int("10" * 128, 2)}
+        if ring is fe.F:
+            exps["(p-3)/4"] = (m - 3) // 4
+        for tag, e in exps.items():
+            parts = len(modring._chain_parts(e))
+            label = f"pow_const mod {mod} e={tag} ({parts} chains)"
+            got = run_path(label, ("mod_pow_chain",),
+                           lambda: ring.pow_const(x, e),
+                           replay=("mod_pow_chain", "mod_mul"),
+                           expect={"mod_pow_chain": parts,
+                                   "mod_mul": parts - 1})
+            if lb.limbs_to_int_batch(got[:, cols]) != [pow(v, e, m)
+                                                       for v in xs]:
+                fail(f"{label}: differs from python ints")
+        vals = lb.limbs_to_int_batch(x)
+        label = f"product_lanes mod {mod}"
+        nonzero = torch.where(lb.is_zero(x).unsqueeze(0),
+                              ring.one((LANES,), device), x)
+        got = run_path(label, ("mod_mul",),
+                       lambda: ring.product_lanes(nonzero),
+                       replay=("mod_mul",),
+                       expect={"mod_mul": (LANES - 1).bit_length()})
+        want = 1
+        for v in vals:
+            want = want * (v or 1) % m
+        label_sum = f"sum_lanes mod {mod}"
+        got_sum = run_path(label_sum, (), lambda: ring.sum_lanes(x))
+        if lb.limbs_to_int_batch(got) != [want] or \
+                lb.limbs_to_int_batch(got_sum) != [sum(vals) % m]:
+            fail(f"{label} or {label_sum}: differs from python ints")
+        edge = [m - 1, m, m + 1, 2**256 - 1, 0, 1]
+        ints = edge + [int.from_bytes(rng.bytes(32), "big")
+                       for _ in range(LANES - len(edge))]
+        rows = np.frombuffer(b"".join(v.to_bytes(32, "big") for v in ints),
+                             np.uint8).reshape(LANES, 32)
+        byts = torch.as_tensor(np.ascontiguousarray(rows.T), device=device)
+        label = f"bytes_are_canonical mod {mod}"
+        got = run_path(label, (), lambda: ring.bytes_are_canonical(byts))
+        if got.cpu().tolist() != [v < m for v in ints]:
+            fail(f"{label}: differs from python ints")
+    say(f"ring functions at {LANES} lanes: pow_const (chains split into "
+        f"parts where the step list is too short), product_lanes, "
+        f"sum_lanes and bytes_are_canonical equal python ints")
+
+
+def trace_entry():
+    """`--trace-entry`: one `profiling.trace` of the package's flagship step
+    (`entry()`, _verify_core at 1,024 lanes) in a fresh process (late in a
+    run the profiler lost the chain kernel of every such session, as it
+    lost the MSM's bucket kernel: see PROFILE_PAD_S); its Chrome trace
+    must name the verify kernels.  The kernels are already built."""
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script drives the port on a GPU")
+    import_port()
+    from secp256k1_tpu_torch import entry
+    from secp256k1_tpu_torch.utils import profiling
+    fn, args = entry.entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    want = [KERNEL_SYMBOL[name] for name in VERIFY_CORE_KERNELS]
+    for _ in range(PROFILE_ATTEMPTS):
+        with profiling.trace() as log_dir:
+            time.sleep(PROFILE_PAD_S)
+            fn(*args)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        path = os.path.join(log_dir, profiling.TRACE_FILE)
+        with open(path) as fh:
+            names = {ev.get("name", "") for ev in json.load(fh)["traceEvents"]}
+        missing = [k for k in want if not any(k in n for n in names)]
+        if not missing:
+            break
+        say(f"profile: trace lost {missing}; tracing again")
+    else:
+        fail(f"profiling.trace: no record of {missing} in {path}")
+    say(f"profiling.trace of entry() (_verify_core at {args[0].shape[1]} "
+        f"lanes, a process of its own): {path} ({os.path.getsize(path)} "
+        f"bytes) names {want}")
+
+
+def profiling_checks(res, verify_ms, planes):
+    """`trace_entry` in a child process; `timed_chain` of _verify_impl
+    beside phase 5's median; `roofline_report` of the point_add time of
+    phase 3 beside its row."""
+    from secp256k1_tpu_torch.models import ecdsa
+    from secp256k1_tpu_torch.utils import profiling
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--trace-entry"], cwd=HERE, timeout=600)
+    if child.returncode:
+        fail(f"the tracing process exited {child.returncode}")
+    per_call = profiling.timed_chain(ecdsa._verify_impl, tuple(planes))
+    say(f"throughput ({smi('name,power.limit')}): timed_chain of "
+        f"_verify_impl at {LANES} lanes {per_call * 1e3:.3f} ms a call "
+        f"(slope of 1 and 4 calls, best of 3); phase 5's median "
+        f"{verify_ms:.3f} ms")
+    rep = profiling.roofline_report(LANES, res["point_add"]["ms"] / 1e3)
+    if abs(rep["bound_s"] * 1e3 - res["point_add"]["bound_ms"]) > 1e-12:
+        fail(f"roofline_report's bound {rep['bound_s'] * 1e3} ms is not "
+             f"point_add's row {res['point_add']['bound_ms']} ms")
+    say(f"profiling.roofline_report point_add at {LANES} lanes: "
+        f"{json.dumps(rep)}; the kernel row's bound "
+        f"{res['point_add']['bound_ms']:.4f} ms by "
+        f"{res['point_add']['bound_by']}")
+
+
+def sharding_phase(triples, data, res, verify_ms, device):
+    """Phase 6: a process group of one rank (NCCL on the card: one card
+    hosts one NCCL rank), the sharded paths, the new ring functions and
+    the profiling helpers; the group is destroyed at the end, failed or
+    not."""
+    import torch.distributed as dist
+    from secp256k1_tpu_torch.entry import free_port
+    from secp256k1_tpu_torch.parallel import mesh as meshmod
+    rng = np.random.default_rng(SEED + 10)
+    meshmod.init_distributed(device=device,
+                             init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        mesh = meshmod.data_mesh()
+        say(f"sharding: world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, mesh {mesh}")
+        meshmod.barrier("sharding phase", timeout_s=60)
+        planes = sharded_verify_path(mesh, triples, device)
+        sharded_msm_paths(mesh, data, rng)
+        ring_function_paths(rng, device)
+        profiling_checks(res, verify_ms, planes)
+    finally:
+        dist.destroy_process_group()
+
+
 def profile_msm():
     """`--profile-msm`: one profiled multi_scalar_mult at MSM_POINTS, in a
     fresh process (see PROFILE_PAD_S); the kernels are already built."""
@@ -2936,6 +3194,8 @@ def glv_only():
 def main():
     if "--profile-msm" in sys.argv[1:]:
         return profile_msm()
+    if "--trace-entry" in sys.argv[1:]:
+        return trace_entry()
     if "--cores" in sys.argv[1:]:
         return cores_only()
     if "--glv" in sys.argv[1:]:
@@ -2992,12 +3252,14 @@ def main():
     consensus = consensus_path(arrays, slice_rng, curve.hc)
     service_paths(ServiceRequests(signers, ecdsa_out, slice_rng), device)
     phase("hash-to-curve, consensus and service paths")
-    throughput(triples, arrays, device)
+    verify_ms = throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
     msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
     ecdh_planes = engine_throughput(ecdh_batch, triples, sign_planes, device)
     h2c_planes = slice_throughput(h2c_batch, consensus, arrays, device)
     phase("throughput")
+    sharding_phase(triples, msm_data, res, verify_ms, device)
+    phase("sharding, ring functions and profiling")
     if "--profile" in sys.argv[1:]:
         from secp256k1_tpu_torch.models import ecdsa
         verify_planes = core_planes(triples, LANES, device)

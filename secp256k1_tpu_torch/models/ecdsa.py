@@ -74,6 +74,11 @@ def _verify_impl(qx, qy, e, r, s):
     return _status_where(bad_rs, ec.ERR_INVALID_SIGNATURE, st)
 
 
+# The name the sharded verify calls (the JAX package's jit of _verify_impl;
+# eager PyTorch has nothing to compile).
+_verify_core = _verify_impl
+
+
 def _finish(st, pub_status, s, reject_malleable, host_status):
     if pub_status is not None:
         st = _status_where(pub_status != ec.OK, ec.ERR_INVALID_PUBLIC_KEY,

@@ -115,6 +115,23 @@ class ModRing:
             return K.mod_pow_chain_plain(x, e, self.modulus)
         return K.mod_pow_chain(_flat(x), e, self.modulus)
 
+    def pow_const(self, x, e: int):
+        """x^e for a public constant e >= 1: the canonical value that the
+        JAX `ModRing.pow_const` computes by 4-bit fixed windows, here by
+        the addition chain of `kernels.pow_chain_steps`, one
+        `mod_pow_chain` launch on CUDA.  The chain's steps depend on e
+        alone, so the time does not depend on x.  An e whose chain
+        exceeds the kernel's step list (about one random 256-bit exponent
+        in two) is split into parts e = e_1 + ... + e_k of its bits, each
+        part's chain one launch, and x^e = x^e_1 ... x^e_k by `mul`."""
+        if e < 1:
+            raise ValueError(f"pow_const: e must be >= 1, got {e}")
+        parts = _chain_parts(e)
+        out = self.pow_const_chain(x, parts[0])
+        for part in parts[1:]:
+            out = self.mul(out, self.pow_const_chain(x, part))
+        return out
+
     def invert(self, x):
         """Fermat inverse x^(m-2); maps 0 -> 0."""
         return self.pow_const_chain(x, self.modulus - 2)
@@ -150,6 +167,33 @@ class ModRing:
                 NLIMBS, cur.shape[1])
         inv = inv[:, :b]
         return lb.select(~zero_lane, inv, self.zero((b,), x.device))
+
+    def sum_lanes(self, x):
+        """The modular sum of all lanes of a [16, B] plane, the batched
+        `Scalar.Sum` of the reference.  Returns [16, 1]."""
+        return self._lane_tree(x, self.add)
+
+    def product_lanes(self, x):
+        """The modular product of all lanes, the batched `Scalar.Product`:
+        one `mul` (a `mod_mul` launch on CUDA) a level of the tree, 16 at
+        65,536 lanes.  Returns [16, 1]."""
+        return self._lane_tree(x, self.mul)
+
+    @staticmethod
+    def _lane_tree(x, op):
+        """The JAX pairwise tree over the lanes: the first half op the
+        second half, level by level, an odd last lane carried to the next
+        level."""
+        flat = x.reshape(NLIMBS, -1)
+        k = flat.shape[1]
+        while k > 1:
+            half = k // 2
+            pair = op(flat[:, :half], flat[:, half:2 * half])
+            if k % 2:
+                pair = torch.cat([pair, flat[:, 2 * half:]], 1)
+            flat = pair
+            k = flat.shape[1]
+        return flat
 
     # -- predicates / selects ----------------------------------------------
 
@@ -197,6 +241,10 @@ class ModRing:
         return torch.stack([x >> 8, x & 0xFF], dim=1).reshape(
             (2 * NLIMBS,) + tuple(x.shape[1:]))
 
+    def bytes_are_canonical(self, byts):
+        """[32, B] big-endian bytes -> bool [B]: the value is below m."""
+        return ~lb.geq_const(self._bytes_to_limbs(byts), self.m_limbs)
+
     def _bytes_to_limbs(self, byts):
         """[NB, B] big-endian bytes -> [ceil(NB/2), B] int64 LE limbs."""
         b = byts.to(lb.WIDE)
@@ -205,6 +253,22 @@ class ModRing:
             b = lb.pad_limbs(b, 1, 0)
         pairs = b.flip(0).reshape((b.shape[0] // 2, 2) + tuple(b.shape[1:]))
         return pairs[:, 0] | (pairs[:, 1] << 8)
+
+
+def _chain_parts(e: int) -> list:
+    """e as a sum of parts whose chains fit the chain kernel: e itself, else
+    its set bits split at the middle of their span, each half split again
+    as it needs."""
+    try:
+        K.pow_chain_steps(e)
+        return [e]
+    except ValueError:
+        low = (e & -e).bit_length() - 1
+        if e.bit_length() - low < 2:         # one set bit: no shorter chain
+            raise
+    mid = (low + e.bit_length()) // 2
+    hi = e >> mid << mid
+    return _chain_parts(hi) + _chain_parts(e - hi)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:

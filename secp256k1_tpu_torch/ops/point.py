@@ -26,6 +26,7 @@ import torch
 from . import field as fe
 from . import limbs as lb
 from .cuda import kernels as K
+from ..utils import batching as bt
 
 B3 = 21  # 3*b for y^2 = x^3 + 7
 
@@ -49,6 +50,15 @@ def generator(batch_shape, device) -> Point:
     return Point(fe.const(GX, batch_shape, device).contiguous(),
                  fe.const(GY, batch_shape, device).contiguous(),
                  fe.one(batch_shape, device))
+
+
+def from_affine_ints(pairs, device=None) -> Point:
+    """Host helper: a list of python-int (x, y) pairs -> Point batch
+    (len(pairs),) with Z = 1, on `device` (None: the GPU)."""
+    dev = bt.resolve_device(device)
+    xs, ys = (torch.as_tensor(lb.int_to_limbs_batch([q[c] for q in pairs]),
+                              dtype=lb.DTYPE, device=dev) for c in range(2))
+    return Point(xs, ys, fe.one((len(pairs),), dev))
 
 
 def _planes(p: Point):
@@ -212,6 +222,15 @@ def on_curve(p: Point):
     z3 = fe.mul(fe.square(p.z), p.z)
     rhs = fe.add(fe.mul(fe.square(p.x), p.x), fe.mul_word(z3, 7))
     return fe.eq(lhs, rhs)
+
+
+def debug_randomize_z(p: Point, z_vals) -> Point:
+    """Test helper: multiply (X, Y, Z) by nonzero factors so that tests
+    cover non-normalized projective representations, the analog of the
+    reference's `DebugMustRandomizeZ`.  z_vals: [16, B] nonzero field
+    elements."""
+    return Point(fe.mul(p.x, z_vals), fe.mul(p.y, z_vals),
+                 fe.mul(p.z, z_vals))
 
 
 def scalar_mult_trivial(k, p: Point) -> Point:

@@ -94,6 +94,14 @@ def decode_point(data: bytes):
     raise ValueError("invalid point encoding")
 
 
+def split_uncompressed_point(data: bytes):
+    """65-byte uncompressed encoding -> (x_bytes, y_is_odd), the analog of
+    the reference's `SplitUncompressedPoint`."""
+    if len(data) != 65 or data[0] != 0x04:
+        raise ValueError("invalid uncompressed point")
+    return data[1:33], bool(data[64] & 1)
+
+
 def encode_point(p1, compressed: bool = False) -> bytes:
     if p1 is None:
         return b"\x00"

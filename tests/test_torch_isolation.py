@@ -3,7 +3,8 @@
 - Every module of `secp256k1_tpu_torch` imports without JAX and without the
   JAX package (checked in a fresh interpreter).
 - Entry points default to the GPU and raise when there is none; only
-  `device="cpu"` runs the plain path.
+  `device="cpu"` runs the plain path (the flagship step `entry()` and
+  `init_distributed` too).
 - A kernel wrapper takes the plain version only for CPU tensors.
 - `chip_smoke.py` fails, and prints no result, without a GPU or outside a
   checkout.
@@ -52,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "models.rfc6979", "models.tuplehash", "models.ecdh", "native",
               "utils.config", "ops.cuda.kernels", "ops.msm", "ops.table",
               "ops.point", "ops.glv", "ops.swu", "models.h2c",
-              "models.bitcoin", "models.service", "convert"):
+              "models.bitcoin", "models.service", "convert",
+              "parallel.mesh", "parallel.sharded", "utils.profiling",
+              "entry"):
         assert f"secp256k1_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -128,6 +131,21 @@ def test_slice_entry_points_raise_without_a_gpu():
             np.full((1, 33), 2, np.uint8), np.zeros((1, 32), np.uint8),
             np.zeros((1, 9), np.uint8), np.full((1,), 9, np.int32)),
         lambda: service.VerifyService(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_flagship_step_and_sharding_entry_points_raise_without_a_gpu():
+    """The flagship step and the sharding's process group."""
+    _need_no_gpu()
+    from secp256k1_tpu_torch import entry
+    from secp256k1_tpu_torch.parallel import mesh as meshmod
+    calls = [
+        lambda: entry.entry(),
+        lambda: meshmod.init_distributed(init_method="tcp://127.0.0.1:1",
+                                         world_size=1, rank=0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
