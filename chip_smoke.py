@@ -138,7 +138,13 @@ the run with a non-zero exit code:
    `sharded_msm`; the rates beside the unsharded ones and the split
    stages' times; `ModRing.pow_const` (small, chain, random and split
    exponents), `product_lanes`, `sum_lanes` and `bytes_are_canonical`
-   mod p and mod n at 65,536 lanes against python ints; each a path with
+   mod p and mod n at 65,536 lanes against python ints; the module
+   aliases `field.pow_const` and `scalar.pow_const` at e = 2^4096,
+   2^5000 + 1, m - 1, m and 2^512 - 1 (reduced below m before the chains
+   are built) against the plain ring on every lane and python `pow` on
+   edge and sampled lanes; `table.lookup_shared_affine_all` on the w = 8
+   signed G table against `lookup_shared_affine` by window and python
+   ints; each a path with
    its launches counted and its kernels' launches replayed through their
    plain versions (the 2^20-point bucket walk is replayed by the MSM
    path only); `profiling.trace` of `entry()` in a child process of this
@@ -294,6 +300,12 @@ MSM_RATE_SIZES = (1 << 16, 1 << 20, 1 << 22)
 SPLIT_SHARDS = 4
 SHARD_WINDOW = 4
 POW_CONST_CHECK_LANES = 1024
+# pow_const's exponents past m - 1 against python pow on the edge lanes and
+# sampled ones; lookup_shared_affine_all against python ints on its planted
+# lanes and sampled ones.
+POW_CONST_EDGE_LANES = 64
+POW_CONST_SAMPLED_LANES = 64
+LOOKUP_SAMPLED_LANES = 3
 PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
 CHAIN_SHAPES: dict = {}         # path label -> {"exponent at width": n}
 ONE_LANE: dict = {}             # path label -> {kernel: one-lane launches}
@@ -2957,7 +2969,7 @@ def ring_function_paths(rng, device):
         if ring is fe.F:
             exps["(p-3)/4"] = (m - 3) // 4
         for tag, e in exps.items():
-            parts = len(modring._chain_parts(e))
+            parts = len(ring._exponent_parts(e))
             label = f"pow_const mod {mod} e={tag} ({parts} chains)"
             got = run_path(label, ("mod_pow_chain",),
                            lambda: ring.pow_const(x, e),
@@ -2996,6 +3008,107 @@ def ring_function_paths(rng, device):
     say(f"ring functions at {LANES} lanes: pow_const (chains split into "
         f"parts where the step list is too short), product_lanes, "
         f"sum_lanes and bytes_are_canonical equal python ints")
+    # These checks draw from a generator of their own, so that the data of
+    # every earlier path stays as it was.
+    alias_rng = np.random.default_rng(SEED + 11)
+    pow_const_alias_paths(alias_rng, device)
+    lookup_all_check(alias_rng, device)
+
+
+def pow_const_alias_paths(rng, device):
+    """`field.pow_const` and `scalar.pow_const` (the module aliases) at
+    exponents above m - 1 and past the chain kernel's step list, each
+    reduced to e' = ((e - 1) mod (m - 1)) + 1 before its chains are built,
+    on LANES random planes, edge values first: launches counted (the
+    chains of each e printed) and replayed; each result against the plain
+    ring's `pow_const` (plain PyTorch on the card) on every lane and
+    against python `pow` on the first POW_CONST_EDGE_LANES lanes and
+    POW_CONST_SAMPLED_LANES sampled ones."""
+    from secp256k1_tpu_torch.ops import field as fe
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import modring
+    from secp256k1_tpu_torch.ops import scalar as sc
+    for mod, module, ring, m in (("p", fe, fe.F, P_FIELD),
+                                 ("n", sc, sc.S, N_ORDER)):
+        plain = modring.ModRing(m, f"plain mod {mod}", plain=True)
+        x = random_planes(rng, LANES, m, device)
+        sampled = rng.choice(np.arange(POW_CONST_EDGE_LANES, LANES),
+                             POW_CONST_SAMPLED_LANES, replace=False)
+        cols = torch.as_tensor(np.concatenate(
+            [np.arange(POW_CONST_EDGE_LANES), np.sort(sampled)]),
+            device=device)
+        xs = lb.limbs_to_int_batch(x[:, cols])
+        exps = {"2^4096": 2**4096, "2^5000+1": 2**5000 + 1, "m-1": m - 1,
+                "m": m, "2^512-1": 2**512 - 1}
+        for tag, e in exps.items():
+            parts = len(ring._exponent_parts(e))
+            label = (f"{module.__name__.rsplit('.', 1)[-1]}.pow_const "
+                     f"mod {mod} e={tag} ({parts} chains)")
+            got = run_path(label, ("mod_pow_chain",),
+                           lambda: module.pow_const(x, e),
+                           replay=("mod_pow_chain", "mod_mul"),
+                           expect={"mod_pow_chain": parts,
+                                   "mod_mul": parts - 1})
+            err = max_abs_err(got, plain.pow_const(x, e))
+            if err:
+                fail(f"{label}: differs from the plain ring's pow_const, "
+                     f"max abs err {err}")
+            if lb.limbs_to_int_batch(got[:, cols]) != [pow(v, e, m)
+                                                       for v in xs]:
+                fail(f"{label}: differs from python pow")
+    say(f"field.pow_const and scalar.pow_const at e = 2^4096, 2^5000 + 1, "
+        f"m - 1, m, 2^512 - 1 on {LANES} lanes equal the plain ring's on "
+        f"every lane and python pow on {POW_CONST_EDGE_LANES} + "
+        f"{POW_CONST_SAMPLED_LANES} lanes")
+
+
+def lookup_all_check(rng, device):
+    """`table.lookup_shared_affine_all` on the w = 8 signed G table
+    [33, 128, 2, 16] at LANES lanes, digits 0, 1 and E planted on the
+    first lanes of every window: against the port's per-window
+    `lookup_shared_affine`, stacked, on every lane, and against python
+    ints (digit d of window w selects d * 2^(8w) * G, 0 the zero row) on
+    the planted and LOOKUP_SAMPLED_LANES sampled lanes.  Plain PyTorch:
+    no kernel is launched."""
+    from secp256k1_tpu_torch.ops import limbs as lb
+    from secp256k1_tpu_torch.ops import table as tbl
+    from secp256k1_tpu_torch.utils import hostcurve as hc
+    table = tbl.base_table(device, 8, signed=True)
+    n_windows, n_entries = table.shape[0], table.shape[1]
+    digits = rng.integers(0, n_entries + 1, (n_windows, LANES))
+    digits[:, :3] = [0, 1, n_entries]
+    d = torch.as_tensor(digits, dtype=torch.int32, device=device)
+    label = "table.lookup_shared_affine_all"
+    sel = run_path(label, (), lambda: tbl.lookup_shared_affine_all(table, d))
+    if any(s.shape != (n_windows, 16, LANES) for s in sel):
+        fail(f"{label}: shapes {[tuple(s.shape) for s in sel]}")
+    stacked = [tbl.lookup_shared_affine(table[k], d[k])
+               for k in range(n_windows)]
+    for c in range(2):
+        err = max_abs_err(sel[c], torch.stack([s[c] for s in stacked]))
+        if err:
+            fail(f"{label}: differs from lookup_shared_affine by window, "
+                 f"max abs err {err}")
+    lanes = [0, 1, 2] + sorted(rng.choice(np.arange(3, LANES),
+                                          LOOKUP_SAMPLED_LANES,
+                                          replace=False).tolist())
+    got_x = sel[0][:, :, lanes].cpu()
+    got_y = sel[1][:, :, lanes].cpu()
+    for k in range(n_windows):
+        xs = lb.limbs_to_int_batch(got_x[k])
+        ys = lb.limbs_to_int_batch(got_y[k])
+        for j, lane in enumerate(lanes):
+            v = int(digits[k, lane])
+            want = (0, 0) if v == 0 else hc.mul(v << (8 * k), hc.G)
+            if (xs[j], ys[j]) != want:
+                fail(f"{label}: window {k} lane {lane} (digit {v}) differs "
+                     f"from python ints")
+    all_ms = median_cuda_ms(lambda: tbl.lookup_shared_affine_all(table, d),
+                            3)
+    say(f"{label} at {LANES} lanes on the [{n_windows}, {n_entries}, 2, 16] "
+        f"signed table: equal to lookup_shared_affine by window on every "
+        f"lane and to python ints on {len(lanes)} lanes; {all_ms[0]:.3f} ms "
+        f"(median of 3, CUDA events)")
 
 
 def trace_entry():

@@ -34,7 +34,7 @@ from ..utils import errors as ec
 from ..utils import hostcurve as hc
 from . import codecs
 from . import keys as keysmod
-from .rfc6979 import RFC6979SHA256
+from .rfc6979 import DrbgRFC6979, RFC6979SHA256  # noqa: F401
 from .tuplehash import TupleHashXOF128
 
 N = hc.N

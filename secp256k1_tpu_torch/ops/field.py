@@ -27,6 +27,7 @@ mul = F.mul
 square = F.square
 mul_word = F.mul_word
 pow2k = F.pow2k
+pow_const = F.pow_const
 invert = F.invert
 invert_batch = F.invert_batch
 is_zero = F.is_zero
@@ -40,6 +41,7 @@ one = F.one
 from_bytes_any = F.from_bytes_any
 from_wide_bytes = F.from_wide_bytes
 to_bytes = F.to_bytes
+bytes_are_canonical = F.bytes_are_canonical
 
 
 def sqrt_ratio(u, v):

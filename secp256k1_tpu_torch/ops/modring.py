@@ -110,27 +110,40 @@ class ModRing:
         """x^e for a constant e >= 1 (the value of the JAX
         `ModRing.pow_const_chain`) by the addition chain of
         `kernels.pow_chain_steps`: ~bitlen squarings and 15-46 multiplies
-        for the exponents here, one `mod_pow_chain` launch on CUDA."""
-        if self.plain:
-            return K.mod_pow_chain_plain(x, e, self.modulus)
-        return K.mod_pow_chain(_flat(x), e, self.modulus)
+        for the exponents here, one `mod_pow_chain` launch on CUDA.
+
+        The modulus is prime, so x^e = x^e' for every canonical x (0
+        included) with e' = ((e - 1) mod (m - 1)) + 1, in [1, m - 1]: e is
+        reduced first, which leaves the exponents in [1, m - 1] (those of
+        `invert` and `field.sqrt`) as they are.  An e' whose chain exceeds
+        the kernel's step list (most random 256-bit exponents) is split
+        into parts e' = e_1 + ... + e_k of its bits, each part's chain one
+        launch, and x^e' = x^e_1 ... x^e_k by `mul`.  The chain's steps
+        depend on e alone, so the time does not depend on x."""
+        parts = self._exponent_parts(e)
+        out = self._chain(x, parts[0])
+        for part in parts[1:]:
+            out = self.mul(out, self._chain(x, part))
+        return out
 
     def pow_const(self, x, e: int):
         """x^e for a public constant e >= 1: the canonical value that the
         JAX `ModRing.pow_const` computes by 4-bit fixed windows, here by
-        the addition chain of `kernels.pow_chain_steps`, one
-        `mod_pow_chain` launch on CUDA.  The chain's steps depend on e
-        alone, so the time does not depend on x.  An e whose chain
-        exceeds the kernel's step list (about one random 256-bit exponent
-        in two) is split into parts e = e_1 + ... + e_k of its bits, each
-        part's chain one launch, and x^e = x^e_1 ... x^e_k by `mul`."""
+        the chains of `pow_const_chain`."""
+        return self.pow_const_chain(x, e)
+
+    def _exponent_parts(self, e: int) -> list:
+        """The exponents of the chains that compute x^e: e' =
+        ((e - 1) mod (m - 1)) + 1, split by `_chain_parts`."""
         if e < 1:
             raise ValueError(f"pow_const: e must be >= 1, got {e}")
-        parts = _chain_parts(e)
-        out = self.pow_const_chain(x, parts[0])
-        for part in parts[1:]:
-            out = self.mul(out, self.pow_const_chain(x, part))
-        return out
+        return _chain_parts((e - 1) % (self.modulus - 1) + 1)
+
+    def _chain(self, x, e: int):
+        """x^e by one chain: one `mod_pow_chain` launch on CUDA."""
+        if self.plain:
+            return K.mod_pow_chain_plain(x, e, self.modulus)
+        return K.mod_pow_chain(_flat(x), e, self.modulus)
 
     def invert(self, x):
         """Fermat inverse x^(m-2); maps 0 -> 0."""
@@ -258,7 +271,7 @@ class ModRing:
 def _chain_parts(e: int) -> list:
     """e as a sum of parts whose chains fit the chain kernel: e itself, else
     its set bits split at the middle of their span, each half split again
-    as it needs."""
+    as it needs.  Any e below 2^4096 splits; `ModRing` passes e < 2^256."""
     try:
         K.pow_chain_steps(e)
         return [e]

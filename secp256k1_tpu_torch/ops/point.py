@@ -40,6 +40,10 @@ class Point(NamedTuple):
     y: torch.Tensor
     z: torch.Tensor
 
+    @property
+    def batch_shape(self):
+        return self.x.shape[1:]
+
 
 def identity(batch_shape, device) -> Point:
     return Point(fe.zero(batch_shape, device), fe.one(batch_shape, device),

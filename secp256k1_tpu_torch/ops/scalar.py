@@ -17,6 +17,7 @@ neg = S.neg
 mul = S.mul
 square = S.square
 pow2k = S.pow2k
+pow_const = S.pow_const
 invert = S.invert
 invert_batch = S.invert_batch
 invert_auto = S.invert_auto
@@ -29,7 +30,9 @@ const = S.const
 zero = S.zero
 one = S.one
 from_bytes_any = S.from_bytes_any
+from_wide_bytes = S.from_wide_bytes
 to_bytes = S.to_bytes
+bytes_are_canonical = S.bytes_are_canonical
 
 # s > n/2: the low-s malleability check.
 is_greater_than_half_n = S.gt_half

@@ -41,6 +41,7 @@ from . import point as pt
 from .cuda import kernels as K
 from ..utils import hostcurve as hc
 
+P = fe.P
 BASE_WINDOW_BITS = 8
 
 _BASE_SIGNED = os.environ.get("SECP256K1_TPU_BASE_SIGNED", "1") != "0"
@@ -324,6 +325,19 @@ def lookup_shared_affine(table_w: torch.Tensor, mags: torch.Tensor):
             (ids.shape[0], 2 * lb.NLIMBS) + (1,) * mags.ndim)
         sel += (hot.unsqueeze(1) * tab).sum(0, dtype=lb.DTYPE)
     return sel[:lb.NLIMBS], sel[lb.NLIMBS:]
+
+
+def lookup_shared_affine_all(tables: torch.Tensor, digits: torch.Tensor,
+                             onehot_budget: int = 1 << 30):
+    """Every window's lookup: tables [W, E, 2, 16] affine entries, digits
+    [W, *B] in [0, E] (d selects entry d - 1 of its window, 0 the zero
+    row) -> (sel_x, sel_y), each int32 [W, 16, *B].  `lookup_shared_affine`
+    a window, stacked: the same constant-time one-hot masked sum, never an
+    index by the digit.  onehot_budget is the JAX signature's; the
+    per-window call already keeps each one-hot product small."""
+    xs, ys = zip(*(lookup_shared_affine(tables[w], digits[w])
+                   for w in range(tables.shape[0])))
+    return torch.stack(xs), torch.stack(ys)
 
 
 def _scan_base_mult(table, digits, signed: bool) -> pt.Point:

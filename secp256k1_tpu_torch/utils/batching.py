@@ -47,6 +47,13 @@ def auto_chunk(n: int, chunk_lanes: int | None,
     return chunk_lanes
 
 
+def batch_shape(b: int) -> tuple:
+    """The batch shape of b lanes: (b,), the layout of every plane here
+    (the JAX package's is (b // 128, 128) while its Pallas kernels are
+    on)."""
+    return (b,)
+
+
 def pad_vals(vals, b, fill):
     return list(vals) + [fill] * (b - len(vals))
 

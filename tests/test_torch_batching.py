@@ -2,14 +2,19 @@
 
 On the CPU the JAX package keeps planes flat ([16, B], no [16, S, 128]
 tiling and no 1024-lane padding), which is the port's only layout, so the
-two must produce the same arrays.
+two must produce the same arrays.  `batch_shape` and `Point.batch_shape`
+agree with the JAX ones while JAX's Pallas switch is off; with it on, JAX
+tiles and the port stays flat (a deliberate difference).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from secp256k1_tpu.ops import pallas as jpallas
+from secp256k1_tpu.ops import point as jpt
 from secp256k1_tpu.utils import batching as jbt
+from secp256k1_tpu_torch.ops import point as pt
 from secp256k1_tpu_torch.utils import batching as bt
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
@@ -54,3 +59,27 @@ def test_planes_match_jax_and_round_trip():
     mask = bt.scalar_plane(flags > 5, 32, fill=False, dtype=torch.bool,
                            device=CPU)
     assert mask.dtype == torch.bool and not bool(mask[20:].any())
+
+
+@pytest.mark.parametrize("pallas_on", [False, True], ids=["flat", "tiled"])
+def test_batch_shape_is_flat(pallas_on):
+    was = jpallas._ENABLED
+    jpallas.set_enabled(pallas_on)
+    try:
+        for b in (1024, 2048, 1 << 16):
+            assert bt.batch_shape(b) == (b,)
+            want = (b // 128, 128) if pallas_on else (b,)
+            assert jbt.batch_shape(b) == want
+        if not pallas_on:
+            for b in (1, 16, 1000):
+                assert bt.batch_shape(b) == jbt.batch_shape(b)
+    finally:
+        jpallas.set_enabled(was)
+
+
+def test_point_batch_shape_matches_jax():
+    for b in (1, 5, 64):
+        planes = [np.zeros((16, b), np.uint32)] * 3
+        port = pt.Point(*[torch.as_tensor(c.astype(np.int32)) for c in planes])
+        assert port.batch_shape == jpt.Point(*planes).batch_shape == (b,)
+    assert pt.generator((3,), CPU).batch_shape == (3,)

@@ -255,6 +255,38 @@ def test_plain_bucket_walk_with_three_slots_matches_python_ints(signed):
             assert _affine(pt.Point(*got[wi, b].unbind(0))) == want
 
 
+def test_plain_bucket_walk_skips_magnitude_zero_with_the_sign_bit():
+    """Signed digits with magnitude 0 and the sign bit set (1 << 6) pinned
+    on lanes of window 0 and of window 1, beside plain zeros and the edge
+    magnitudes 1 and nb with and without the sign: each such lane adds to
+    no bucket, and every partial bucket equals in affine the python-int
+    sum of its slot's points."""
+    rng = np.random.default_rng(66)
+    nb, n, w, m = 8, 24, 2, 4
+    digits = rng.integers(0, nb + 1, (w, n)) | (rng.integers(0, 2, (w, n))
+                                                << 6)
+    digits[0, :6] = [1 << 6, 1 << 6, 0, 1 << 6, nb | 1 << 6, 1]
+    digits[1, 8:14] = [1 << 6, 0, 1 << 6, 1 << 6, 1 | 1 << 6, nb]
+    pick = rng.integers(0, len(_base_points()), n)
+    affine = [_base_points()[i] for i in pick]
+    p = _points(affine, [v + 1 for v in _rand(P - 1, n, rng)])
+    got = K.msm_bucket_accumulate_all(
+        torch.as_tensor(digits, dtype=torch.int32), *p, nb,
+        signed_digits=True, m_slots=m)
+    assert got.shape == (w, nb, 3, 16, m)
+    for wi in range(w):
+        for b in range(nb):
+            want = [None] * m
+            for i in range(n):
+                d = int(digits[wi, i])
+                if d & 0x3F == b + 1:
+                    q = affine[i]
+                    if d >> 6 == 1:
+                        q = (q[0], P - q[1])
+                    want[i % m] = gold.affine_add(want[i % m], q)
+            assert _affine(pt.Point(*got[wi, b].unbind(0))) == want, (wi, b)
+
+
 # ---------------------------------------------------------------------------
 # Digits.
 # ---------------------------------------------------------------------------

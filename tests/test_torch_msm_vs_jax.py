@@ -11,7 +11,8 @@ Both packages get the same numpy inputs through
 the JAX package always takes sort + scan, its Pallas kernels being off)
 the projective X, Y, Z must be equal bit for bit; at 2,048 points the port
 takes the bucket path and JAX sort + scan, so there the affine points must
-be equal.
+be equal, as they must for the bucket kernel's signed digits against the
+JAX sort + scan buckets of the same points.
 """
 
 import jax
@@ -28,6 +29,7 @@ from secp256k1_tpu_torch.ops import limbs as lb
 from secp256k1_tpu_torch.ops import msm
 from secp256k1_tpu_torch.ops import point as pt
 from secp256k1_tpu_torch.ops import table as tbl
+from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import hostcurve as hc
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
@@ -175,3 +177,51 @@ def test_bucket_path_matches_jax_affine(monkeypatch):
                                            _jax_point(planes))
     got = msm.multi_scalar_mult(convert.plane_to_torch(ks), points)
     assert _affine(got) == _affine(want) and _affine(got)[0] is not None
+
+
+def test_bucket_kernel_skips_magnitude_zero_with_the_sign_bit():
+    """Signed digits (magnitude | sign << 6) with magnitude 0 and the sign
+    bit set pinned on lanes of window 0 and of window 1: the bucket
+    kernel's entry point (its plain version on the CPU) adds them to no
+    bucket.  Each bucket, its lane slots summed, equals in affine the JAX
+    `_bucket_accumulate` bucket of the same points, y negated where the
+    sign bit is set, and the python-int sum."""
+    n, nb, m_slots = 32, 8, 8
+    rng = np.random.default_rng(66)
+    _, planes = _inputs(n, 66)
+    digits = rng.integers(0, nb + 1, (2, n)) | (rng.integers(0, 2, (2, n))
+                                                << 6)
+    digits[0, :4] = 1 << 6
+    digits[0, 4:6] = [0, nb | 1 << 6]
+    digits[1, 8:12] = 1 << 6
+    digits[1, 12:14] = [0, 1]
+    got = K.msm_bucket_accumulate_all(
+        torch.as_tensor(digits, dtype=torch.int32),
+        *convert.point_to_torch(planes), nb, signed_digits=True,
+        m_slots=m_slots)
+    assert got.shape == (2, nb, 3, 16, m_slots)
+    accumulate = jax.jit(jmsm._bucket_accumulate, static_argnums=2)
+    points = _affine(planes)
+    for w in range(2):
+        mag, neg = digits[w] & 0x3F, (digits[w] >> 6) == 1
+        ys = lb.limbs_to_int_batch(planes[1].astype(np.int64))
+        zs = lb.limbs_to_int_batch(planes[2].astype(np.int64))
+        y_neg = [(P - y) % P if s else y for y, s in zip(ys, neg)]
+        jplanes = np.stack([planes[0], lb.int_to_limbs_batch(y_neg)
+                            .astype(np.uint32), planes[2]])
+        buckets = np.asarray(accumulate(jnp.asarray(jplanes),
+                                        jnp.asarray(mag.astype(np.uint32)),
+                                        nb + 1))         # [nb + 1, 3, 16]
+        want_jax = _affine([buckets[1:, c].T for c in range(3)])
+        for b in range(nb):
+            slots = _affine([got[w, b, c] for c in range(3)])
+            port = None
+            for q in slots:
+                port = hc.add(port, q)
+            want = None
+            for i in range(n):
+                if mag[i] == b + 1:
+                    q = points[i]
+                    want = hc.add(want, hc.neg(q) if neg[i] else q)
+            assert port == want_jax[b] == want, (w, b)
+        assert all(zs)

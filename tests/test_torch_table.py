@@ -3,7 +3,9 @@
 The signed G table must equal the JAX package's bit for bit (through
 `secp256k1_tpu_torch.convert`), the signed recoding must match JAX
 `_signed_digits`, and the plain fixed-base function and
-`scalar_base_mult_add` must give k*G + Q.  Tolerance 0 throughout.
+`scalar_base_mult_add` must give k*G + Q, and the all-windows lookup
+`lookup_shared_affine_all` must equal the JAX one (plain XLA) and the
+per-window `lookup_shared_affine`, stacked.  Tolerance 0 throughout.
 """
 
 import jax
@@ -113,3 +115,33 @@ def test_fixed_base_against_python_ints(via):
     want = [hc.add(hc.mul(k, hc.G), qv) for k, qv in zip(ks, qs)]
     assert want[0] is None
     assert _affine(got) == want
+
+
+@pytest.mark.parametrize("budget", [1 << 30, 4 * 8 * 64 + 1],
+                         ids=["one-chunk", "window-a-chunk"])
+def test_lookup_shared_affine_all_matches_jax(budget):
+    """W = 4 windows of E = 8 random entries, 64 lanes, digits 0 and E
+    planted; a budget of one window's one-hot operand makes a chunk a
+    window."""
+    w, e, lanes = 4, 8, 64
+    rng = np.random.default_rng(77)
+    tables = rng.integers(0, 1 << 16, (w, e, 2, 16)).astype(np.uint32)
+    digits = rng.integers(0, e + 1, (w, lanes)).astype(np.int32)
+    digits[:, :3] = [0, e, 1]
+    digits[2, 10:20] = 0
+    digits[3, 20:30] = e
+    want = jtbl.lookup_shared_affine_all(jnp.asarray(tables),
+                                         jnp.asarray(digits))
+    got = tbl.lookup_shared_affine_all(convert.table_to_torch(tables),
+                                       torch.as_tensor(digits),
+                                       onehot_budget=budget)
+    for g, j in zip(got, want):
+        assert g.shape == (w, 16, lanes) and g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(j).astype(np.int64))
+    tab_t = convert.table_to_torch(tables)
+    for k in range(w):
+        one = tbl.lookup_shared_affine(tab_t[k], torch.as_tensor(digits[k]))
+        assert torch.equal(got[0][k], one[0])
+        assert torch.equal(got[1][k], one[1])
+    assert not bool(got[0][:, :, 0].any())           # digit 0: the zero row
+    assert np.array_equal(got[0][:, :, 1].numpy(), tables[:, e - 1, 0])
