@@ -105,7 +105,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "print(json.dumps([s.__version__, bad]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == ["0.1.0", []]
 

@@ -273,7 +273,7 @@ def host_lib():
         proc = subprocess.run(
             ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
              "-fPIC", "-Wall", "-I", build.CSRC, "-o", tmp, src],
-            capture_output=True, text=True)
+            capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)

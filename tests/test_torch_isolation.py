@@ -44,7 +44,7 @@ def _modules():
 def _run(code, cwd=REPO):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=60)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -251,11 +251,11 @@ def test_build_is_keyed_by_the_sources():
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     _need_no_gpu()
     out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
-                         cwd=REPO, capture_output=True, text=True, timeout=300)
+                         cwd=REPO, capture_output=True, text=True, timeout=60)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "kernels" not in out.stdout
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=60)
     assert out.returncode != 0 and '"ok"' not in out.stdout
