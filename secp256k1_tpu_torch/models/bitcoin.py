@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..utils import batching as bt
 from ..utils import config as cfg
-from ..utils import errors as ec
+from ..utils import errors as ec  # noqa: F401
 from . import ecdsa as ecdsamod
 
 _TAG_SEQUENCE_COMPOUND = 0x30
@@ -75,7 +76,11 @@ def bip0066_valid_np(sigs: np.ndarray, lens: np.ndarray) -> np.ndarray:
     lengths with the sighash byte.  Returns [n] bool.  The checks of
     `is_valid_signature_encoding_bip0066` in its order; a read past a row
     is clipped, harmless because every condition is ANDed and such a lane
-    has already failed."""
+    has already failed.
+
+    The NumPy form, kept for the benchmark's control and the tests:
+    consensus verify (`verify_asn1_batch_arrays`) runs the same checks in
+    the native DER parse, `native.bip0066_sig_parse_batch`."""
     n, max_len = sigs.shape
     ls = lens.astype(np.int64)
     s = sigs.astype(np.int64)
@@ -108,19 +113,16 @@ def verify_asn1_batch_arrays(pubs_sec1: np.ndarray, digests: np.ndarray,
                              sigs: np.ndarray, lens: np.ndarray,
                              chunk_lanes: int | None = None,
                              device=None) -> np.ndarray:
-    """Batched consensus verify on numpy arrays: BIP-0066 over the rows,
-    the sighash byte stripped, then `ecdsa.verify_batch_arrays` with low s
-    enforced.  Returns [n] int32 status codes; a BIP-0066 failure is
-    ERR_INVALID_ENCODING."""
-    device = bt.resolve_device(device)
-    enc_ok = bip0066_valid_np(sigs, lens)
-    stripped_lens = np.where(enc_ok, lens - 1, 2).astype(np.int32)
-    sig_in = sigs.copy()
-    sig_in[~enc_ok, :2] = (0x30, 0x00)                 # inert placeholder
-    st = ecdsamod.verify_batch_arrays(
-        pubs_sec1, digests, sig_in, stripped_lens, reject_malleable=True,
-        chunk_lanes=chunk_lanes, device=device)
-    return np.where(enc_ok, st, ec.ERR_INVALID_ENCODING).astype(np.int32)
+    """Batched consensus verify on numpy arrays, each row parsed once: one
+    native pass checks BIP-0066 and parses the DER without its sighash byte
+    (`native.bip0066_sig_parse_batch`), then `ecdsa.verify_batch_arrays`'s
+    path with low s enforced.  Returns [n] int32 status codes; a BIP-0066
+    failure is ERR_INVALID_ENCODING, ahead of every other status."""
+    return ecdsamod._verify_arrays(
+        pubs_sec1, digests, sigs, lens, reject_malleable=True,
+        chunk_lanes=chunk_lanes, pub_lens=None,
+        device=bt.resolve_device(device),
+        parse=native.bip0066_sig_parse_batch)
 
 
 def verify_asn1_batch(pubs, digests, sigs, device=None) -> list:

@@ -205,11 +205,12 @@ def hash_to_scalar_int(digest: bytes) -> int:
     return int.from_bytes(digest[:32], "big") % N
 
 
-def _parse_sigs_host(sigs: np.ndarray, lens: np.ndarray, n: int):
-    """Strict-DER parse of every row in one native call: (r_arr [n, 32]
-    u8, s_arr [n, 32] u8, host_status [n] int32), no key checks and no
-    inert fill."""
-    r_arr, s_arr, pstat = native.asn1_sig_parse_batch(sigs[:n], lens[:n])
+def _parse_sigs_host(sigs: np.ndarray, lens: np.ndarray, n: int,
+                     parse=native.asn1_sig_parse_batch):
+    """Parse every row in one native call, `parse` (strict DER by
+    default): (r_arr [n, 32] u8, s_arr [n, 32] u8, host_status [n] int32),
+    no key checks and no inert fill."""
+    r_arr, s_arr, pstat = parse(sigs[:n], lens[:n])
     host_status = np.where(
         pstat == 0, ec.OK,
         np.where(pstat == 1, ec.ERR_INVALID_ENCODING,
@@ -305,22 +306,25 @@ def _plane_rows(plane: torch.Tensor, n: int) -> np.ndarray:
 
 
 def _inert_fill(r_arr, s_arr, host_status):
-    """Failed lanes get inert device inputs (r = s = 1)."""
+    """Failed lanes get inert device inputs (r = s = 1), written in place
+    into the parse's own rows: only the failed rows are touched, where a
+    masked copy would rewrite both [n, 32] arrays."""
     one32 = np.zeros((32,), np.uint8)
     one32[31] = 1
-    bad = host_status != ec.OK
-    return (np.where(bad[:, None], one32[None], r_arr),
-            np.where(bad[:, None], one32[None], s_arr))
+    bad = np.flatnonzero(host_status != ec.OK)
+    r_arr[bad] = one32
+    s_arr[bad] = one32
+    return r_arr, s_arr
 
 
 def _e2e_host_parse(pubs_sec1: np.ndarray, sigs: np.ndarray,
-                    lens: np.ndarray):
-    """Host stage: strict-DER parse and key prefix checks.  In a 65-byte
-    wide batch a compressed key's 32 pad bytes must be zero (the JAX
-    package ignores them); a lane that breaks that fails with
-    ERR_INVALID_PUBLIC_KEY."""
+                    lens: np.ndarray, parse=native.asn1_sig_parse_batch):
+    """Host stage: the signature parse (`_parse_sigs_host`) and key prefix
+    checks.  In a 65-byte wide batch a compressed key's 32 pad bytes must
+    be zero (the JAX package ignores them); a lane that breaks that fails
+    with ERR_INVALID_PUBLIC_KEY."""
     n = pubs_sec1.shape[0]
-    r_arr, s_arr, host_status = _parse_sigs_host(sigs, lens, n)
+    r_arr, s_arr, host_status = _parse_sigs_host(sigs, lens, n, parse)
     prefix = pubs_sec1[:, 0]
     bad_prefix = (prefix != 0x02) & (prefix != 0x03)
     if pubs_sec1.shape[1] == 65:
@@ -383,7 +387,16 @@ def verify_batch_arrays(pubs_sec1: np.ndarray, digests: np.ndarray,
     length disagrees with its prefix (33 compressed, 65 uncompressed)
     fails with ERR_INVALID_PUBLIC_KEY.  device: None (the GPU) or a torch
     device."""
-    device = bt.resolve_device(device)
+    return _verify_arrays(pubs_sec1, digests, sigs, lens, reject_malleable,
+                          chunk_lanes, pub_lens, bt.resolve_device(device))
+
+
+def _verify_arrays(pubs_sec1, digests, sigs, lens, reject_malleable,
+                   chunk_lanes, pub_lens, device,
+                   parse=native.asn1_sig_parse_batch):
+    """`verify_batch_arrays` on a resolved device, the rows read by the
+    native parser `parse` (arguments and statuses of
+    `native.asn1_sig_parse_batch`)."""
     n = pubs_sec1.shape[0]
     if pubs_sec1.shape[1] not in (33, 65) or digests.shape[0] != n \
             or digests.shape[1] < 32 or sigs.shape[0] != n:
@@ -395,7 +408,8 @@ def verify_batch_arrays(pubs_sec1: np.ndarray, digests: np.ndarray,
     if lens is None:
         lens = np.full((n,), sigs.shape[1], dtype=np.int32)
 
-    r_arr, s_arr, host_status = _e2e_host_parse(pubs_sec1, sigs, lens)
+    r_arr, s_arr, host_status = _e2e_host_parse(pubs_sec1, sigs, lens,
+                                                parse)
     if pub_lens is not None:
         expect = np.where(pubs_sec1[:, 0] == 0x04, 65, 33)
         host_status = np.where(

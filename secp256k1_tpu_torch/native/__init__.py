@@ -2,7 +2,8 @@
 
 Batched SHA-256, the RFC 6979 HMAC-DRBG (first candidate of every lane, and
 the continuation of one lane past a rejected candidate), BIP-0340 tagged
-hashes and the strict-DER ECDSA signature parse, one C call per batch.
+hashes and the strict-DER ECDSA signature parse (alone, or behind BIP-0066
+for consensus verify), one C call per batch.
 
 The library is built at first use with `g++ -O2 -shared -fPIC` into
 
@@ -78,10 +79,12 @@ def lib() -> ctypes.CDLL:
                                         _U8P, ctypes.c_size_t,
                                         _U8P, ctypes.c_size_t,
                                         ctypes.c_size_t, _U8P]
-        L.asn1_sig_parse_batch.argtypes = [_U8P, _I32P, ctypes.c_size_t,
-                                           ctypes.c_size_t, _U8P, _U8P, _U8P]
+        for fn in (L.asn1_sig_parse_batch, L.bip0066_sig_parse_batch):
+            fn.argtypes = [_U8P, _I32P, ctypes.c_size_t, ctypes.c_size_t,
+                           _U8P, _U8P, _U8P]
         for fn in (L.sha256_batch, L.rfc6979_nonce_batch, L.rfc6979_continue,
-                   L.tagged_hash_batch, L.asn1_sig_parse_batch):
+                   L.tagged_hash_batch, L.asn1_sig_parse_batch,
+                   L.bip0066_sig_parse_batch):
             fn.restype = None
         _LIB = L
         return _LIB
@@ -137,13 +140,7 @@ def rfc6979_continue(state_v: np.ndarray, state_k: np.ndarray,
     return out
 
 
-def asn1_sig_parse_batch(sigs: np.ndarray, lens: np.ndarray):
-    """Batched strict-DER ECDSA signature parse.
-
-    sigs: [B, max_len] u8 (rows zero-padded); lens: [B] actual sizes.
-    Returns (r [B, 32], s [B, 32], status [B] u8): status 0 = ok,
-    1 = malformed encoding, 2 = zero or out-of-range scalar, the classes of
-    `models.codecs.parse_asn1_signature`."""
+def _sig_parse(fn_name: str, sigs: np.ndarray, lens: np.ndarray):
     sigs = _rows(sigs)
     lens = np.ascontiguousarray(lens, dtype=np.int32)
     b, max_len = sigs.shape
@@ -152,9 +149,29 @@ def asn1_sig_parse_batch(sigs: np.ndarray, lens: np.ndarray):
     r = np.empty((b, 32), dtype=np.uint8)
     s = np.empty((b, 32), dtype=np.uint8)
     status = np.empty((b,), dtype=np.uint8)
-    lib().asn1_sig_parse_batch(_p(sigs), lens.ctypes.data_as(_I32P), max_len,
-                               b, _p(r), _p(s), _p(status))
+    getattr(lib(), fn_name)(_p(sigs), lens.ctypes.data_as(_I32P), max_len,
+                            b, _p(r), _p(s), _p(status))
     return r, s, status
+
+
+def asn1_sig_parse_batch(sigs: np.ndarray, lens: np.ndarray):
+    """Batched strict-DER ECDSA signature parse.
+
+    sigs: [B, max_len] u8 (rows zero-padded); lens: [B] actual sizes.
+    Returns (r [B, 32], s [B, 32], status [B] u8): status 0 = ok,
+    1 = malformed encoding, 2 = zero or out-of-range scalar, the classes of
+    `models.codecs.parse_asn1_signature`."""
+    return _sig_parse("asn1_sig_parse_batch", sigs, lens)
+
+
+def bip0066_sig_parse_batch(sigs: np.ndarray, lens: np.ndarray):
+    """Consensus intake in one pass over each row: BIP-0066 on the row of
+    lens[i] bytes, its sighash byte included (a row longer than max_len
+    fails), then the strict-DER parse of its first lens[i] - 1 bytes.
+
+    Arguments and returns as `asn1_sig_parse_batch`; a BIP-0066 failure is
+    status 1 with r = s = 0."""
+    return _sig_parse("bip0066_sig_parse_batch", sigs, lens)
 
 
 def tagged_hash_batch(tag: bytes, p1: np.ndarray | None,

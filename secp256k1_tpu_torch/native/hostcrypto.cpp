@@ -1,13 +1,15 @@
 // Native host-side batch crypto of the PyTorch port: SHA-256, HMAC-SHA256,
 // RFC 6979 nonce derivation, BIP-0340 tagged hashes and the strict-DER
-// signature parse, as C batch APIs loaded from Python with ctypes
+// signature parse (alone, or behind BIP-0066's encoding rules for consensus
+// verify), as C batch APIs loaded from Python with ctypes
 // (secp256k1_tpu_torch/native/__init__.py).
 //
 // A copy of secp256k1_tpu/native/hostcrypto.cpp, so that the port never
-// loads anything of the JAX package.  The host feeds the GPU with byte
-// planes; nonce derivation is ~19 sequential HMAC invocations per signature
-// and a DER parse is byte-by-byte branching, both far slower through Python
-// call by call than here.
+// loads anything of the JAX package, with one entry more: the BIP-0066
+// checks in front of the parse (bip0066_sig_parse_batch).  The host feeds
+// the GPU with byte planes; nonce derivation is ~19 sequential HMAC
+// invocations per signature and a DER parse is byte-by-byte branching, both
+// far slower through Python call by call than here.
 //
 // SHA-256 per FIPS 180-4; HMAC per RFC 2104; nonces per RFC 6979 3.2 and
 // BIP-0340.
@@ -322,6 +324,58 @@ int der_scalar(const uint8_t* c, size_t clen, uint8_t out[32]) {
   return 0;
 }
 
+// The strict-DER parse of one row of `len` bytes into r and s, which the
+// caller has zeroed; returns the row's status.
+uint8_t der_sig_parse(const uint8_t* sig, size_t len, uint8_t* r,
+                      uint8_t* s) {
+  uint8_t tag;
+  size_t c_off, c_len, next;
+  if (read_tlv(sig, len, 0, &tag, &c_off, &c_len, &next) != 0 ||
+      tag != 0x30 || next != len) {
+    return 1;
+  }
+  // Read BOTH integer TLVs before scalar validation — the error-class
+  // precedence of the Python parser (structure first, ranges second).
+  const uint8_t* seq = sig + c_off;
+  size_t seq_len = c_len;
+  size_t off = 0;
+  size_t r_off, r_len, s_off, s_len;
+  if (read_tlv(seq, seq_len, 0, &tag, &r_off, &r_len, &off) != 0 ||
+      tag != 0x02) {
+    return 1;
+  }
+  if (read_tlv(seq, seq_len, off, &tag, &s_off, &s_len, &off) != 0 ||
+      tag != 0x02 || off != seq_len) {
+    return 1;
+  }
+  int rc = der_scalar(seq + r_off, r_len, r);
+  if (rc) return uint8_t(rc);
+  return uint8_t(der_scalar(seq + s_off, s_len, s));
+}
+
+// BIP-0066 over one row of `len` bytes, its sighash byte included: the
+// checks of models/bitcoin.py is_valid_signature_encoding_bip0066 in that
+// function's order, each read inside the row.
+bool bip0066_valid(const uint8_t* d, size_t len) {
+  if (len < 9 || len > 73) return false;
+  if (d[0] != 0x30) return false;
+  if (d[1] != len - 3) return false;
+  size_t len_r = d[3];
+  if (5 + len_r >= len) return false;
+  size_t len_s = d[5 + len_r];
+  if (len_r + len_s + 7 != len) return false;
+  if (d[2] != 0x02) return false;
+  if (len_r == 0) return false;
+  if (d[4] & 0x80) return false;
+  if (len_r > 1 && d[4] == 0x00 && !(d[5] & 0x80)) return false;
+  if (d[len_r + 4] != 0x02) return false;
+  if (len_s == 0) return false;
+  if (d[len_r + 6] & 0x80) return false;
+  if (len_s > 1 && d[len_r + 6] == 0x00 && !(d[len_r + 7] & 0x80))
+    return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,40 +386,35 @@ void asn1_sig_parse_batch(const uint8_t* sigs, const int32_t* lens,
                           uint8_t* s_out /* [B,32] */,
                           uint8_t* status /* [B] */) {
   for (size_t i = 0; i < batch; i++) {
+    size_t len = size_t(lens[i]);
+    uint8_t* r = r_out + 32 * i;
+    uint8_t* s = s_out + 32 * i;
+    std::memset(r, 0, 32);
+    std::memset(s, 0, 32);
+    status[i] = len > max_len ? 1 : der_sig_parse(sigs + i * max_len, len,
+                                                  r, s);
+  }
+}
+
+// Consensus intake in one pass over each row: BIP-0066 on the row of
+// lens[i] bytes (sighash byte included; a row longer than max_len fails),
+// then the strict-DER parse of its first lens[i] - 1 bytes.  A BIP-0066
+// failure is status 1 with r = s = 0; otherwise the status and r, s of
+// asn1_sig_parse_batch on the stripped row.
+void bip0066_sig_parse_batch(const uint8_t* sigs, const int32_t* lens,
+                             size_t max_len, size_t batch,
+                             uint8_t* r_out /* [B,32] */,
+                             uint8_t* s_out /* [B,32] */,
+                             uint8_t* status /* [B] */) {
+  for (size_t i = 0; i < batch; i++) {
     const uint8_t* sig = sigs + i * max_len;
     size_t len = size_t(lens[i]);
     uint8_t* r = r_out + 32 * i;
     uint8_t* s = s_out + 32 * i;
     std::memset(r, 0, 32);
     std::memset(s, 0, 32);
-    uint8_t tag;
-    size_t c_off, c_len, next;
-    if (len > max_len ||
-        read_tlv(sig, len, 0, &tag, &c_off, &c_len, &next) != 0 ||
-        tag != 0x30 || next != len) {
-      status[i] = 1;
-      continue;
-    }
-    // Read BOTH integer TLVs before scalar validation — the error-class
-    // precedence of the Python parser (structure first, ranges second).
-    const uint8_t* seq = sig + c_off;
-    size_t seq_len = c_len;
-    size_t off = 0;
-    size_t r_off, r_len, s_off, s_len;
-    if (read_tlv(seq, seq_len, 0, &tag, &r_off, &r_len, &off) != 0 ||
-        tag != 0x02) {
-      status[i] = 1;
-      continue;
-    }
-    if (read_tlv(seq, seq_len, off, &tag, &s_off, &s_len, &off) != 0 ||
-        tag != 0x02 || off != seq_len) {
-      status[i] = 1;
-      continue;
-    }
-    int rc = der_scalar(seq + r_off, r_len, r);
-    if (rc) { status[i] = uint8_t(rc); continue; }
-    rc = der_scalar(seq + s_off, s_len, s);
-    status[i] = uint8_t(rc);
+    status[i] = len > max_len || !bip0066_valid(sig, len)
+                    ? 1 : der_sig_parse(sig, len - 1, r, s);
   }
 }
 

@@ -13,8 +13,6 @@ Every future is awaited with a timeout and every service closed.
 """
 
 import hashlib
-import json
-import os
 import queue
 import threading
 import time
@@ -23,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+import bip0066_cases
 from secp256k1_tpu.models import bitcoin as jbitcoin
 from secp256k1_tpu_torch.models import bitcoin, codecs, ecdsa, keys, service
 from secp256k1_tpu_torch.models.rfc6979 import RFC6979SHA256
 from secp256k1_tpu_torch.utils import errors as ec
+from secp256k1_tpu_torch.utils import hostcurve as hc
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -34,7 +34,6 @@ torch.set_num_threads(1)
 
 CPU = "cpu"
 N = keys.N
-TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")
 
 
 @pytest.fixture(autouse=True)
@@ -55,15 +54,6 @@ def signed():
     return privs, digests, sigs
 
 
-def _vectors():
-    with open(os.path.join(TESTDATA, "bip-0066-test-vectors.json")) as f:
-        data = json.load(f)
-    valid = [bytes.fromhex(c["DER"]) + b"\x45" for c in data["valid"]]
-    invalid = [bytes.fromhex(c["DER"]) + b"\x45"
-               for c in data["invalid"]["decode"]]
-    return valid, invalid
-
-
 def _rows(sigs, width=80):
     arr = np.zeros((len(sigs), width), np.uint8)
     for i, s in enumerate(sigs):
@@ -74,7 +64,7 @@ def _rows(sigs, width=80):
 # --- BIP-0066 ------------------------------------------------------------
 
 def test_bip0066_vectors():
-    valid, invalid = _vectors()
+    valid, invalid = bip0066_cases.vectors()
     assert all(bitcoin.is_valid_signature_encoding_bip0066(s) for s in valid)
     assert not any(bitcoin.is_valid_signature_encoding_bip0066(s)
                    for s in invalid)
@@ -84,24 +74,7 @@ def test_bip0066_np_matches_jax_on_vectors_and_mutations():
     """The numpy form against the JAX numpy form and both scalar forms:
     the vectors, then seeded mutations of them (a byte changed, a byte cut
     or added, a length byte off by one)."""
-    valid, invalid = _vectors()
-    rng = np.random.default_rng(66)
-    cases = list(valid) + list(invalid)
-    for _ in range(600):
-        s = bytearray(valid[rng.integers(len(valid))])
-        kind = rng.integers(4)
-        if kind == 0:
-            s[rng.integers(len(s))] = int(rng.integers(256))
-        elif kind == 1:
-            del s[rng.integers(len(s))]
-        elif kind == 2:
-            s.insert(int(rng.integers(len(s) + 1)), int(rng.integers(256)))
-        else:
-            pos = int(rng.choice([1, 3, 5 + s[3]])) if 5 + s[3] < len(s) \
-                else 1
-            s[pos] = (s[pos] + int(rng.choice([-1, 1]))) % 256
-        cases.append(bytes(s))
-    cases += [b"", b"\x30", bytes(73), b"\x30" * 74]
+    cases = bip0066_cases.cases()
     arr, lens = _rows(cases)
     got = bitcoin.bip0066_valid_np(arr, lens)
     assert np.array_equal(got, jbitcoin.bip0066_valid_np(arr, lens))
@@ -131,7 +104,7 @@ def test_consensus_batches(signed):
     valid lanes, high s, a missing sighash byte, a BIP-0066 vector that
     fails and a wrong digest."""
     privs, digests, sigs = signed
-    _, invalid = _vectors()
+    _, invalid = bip0066_cases.vectors()
     pubs = [privs[i % 3].public_key for i in range(8)]
     digs = list(digests[:8])
     full = [s + b"\x01" for s in sigs[:8]]
@@ -154,6 +127,62 @@ def test_consensus_batches(signed):
     assert st.tolist() == want
     assert bitcoin.verify_asn1_batch(pubs, digs, full, device=CPU) == \
         [w == ec.OK for w in want]
+
+
+def test_consensus_statuses_equal_the_numpy_composition(signed):
+    """verify_asn1_batch_arrays, whose native pass checks BIP-0066 while it
+    parses, gives the statuses of the composition it replaced lane for
+    lane: the NumPy BIP-0066 check, a placeholder row where it fails,
+    `ecdsa.verify_batch_arrays(reject_malleable=True)`, then
+    ERR_INVALID_ENCODING ahead of every other status."""
+    privs, digests, sigs = signed
+    n = 13
+    pubs = [privs[i % 3].public_key.compressed_bytes() for i in range(n)]
+    digs = [digests[i % 9] for i in range(n)]
+    rows = [sigs[i % 9] + b"\x01" for i in range(n)]
+    want = [ec.OK] * n
+    r, s = codecs.parse_asn1_signature(sigs[1])
+    rows[1] = codecs.build_asn1_signature(r, N - s) + b"\x01"
+    want[1] = ec.ERR_MALLEABLE
+    rows[2] = sigs[2]                                    # no sighash byte
+    row = rows[3]
+    rows[3] = b"\x31" + row[1:]                          # not a SEQUENCE
+    row = rows[4]
+    rows[4] = (bytes([0x30, row[1] + 1, 0x02, row[3] + 1, 0x00])
+               + row[4:])                                # r with a 0x00
+    row = rows[5]
+    rows[5] = row[:1] + bytes([row[1] + 1]) + row[2:]    # a wrong length
+    for i in (2, 3, 4, 5):
+        want[i] = ec.ERR_INVALID_ENCODING
+    digs[6] = digests[8] if digs[6] != digests[8] else digests[0]
+    want[6] = ec.ERR_V_NEQ_R
+    x = 5
+    while hc.lift_x(x, False) is not None:
+        x += 1
+    pubs[7] = b"\x02" + x.to_bytes(32, "big")
+    want[7] = ec.ERR_INVALID_PUBLIC_KEY
+    pubs[8] = b"\x05" + pubs[8][1:]                      # bad prefix and
+    rows[8] = rows[8][:-1]                               # no sighash byte
+    want[8] = ec.ERR_INVALID_ENCODING
+    pubs[9] = b"\x05" + pubs[9][1:]
+    want[9] = ec.ERR_INVALID_PUBLIC_KEY
+    rows[10] = bytes.fromhex("3006020100020101") + b"\x01"   # r = 0
+    want[10] = ec.ERR_INVALID_SCALAR
+    arr, lens = _rows(rows)
+    pub_arr = np.stack([np.frombuffer(p, np.uint8) for p in pubs])
+    dig_arr = np.stack([np.frombuffer(d, np.uint8) for d in digs])
+    got = bitcoin.verify_asn1_batch_arrays(pub_arr, dig_arr, arr, lens,
+                                           device=CPU)
+
+    enc_ok = bitcoin.bip0066_valid_np(arr, lens)
+    old_lens = np.where(enc_ok, lens - 1, 2).astype(np.int32)
+    old_sigs = arr.copy()
+    old_sigs[~enc_ok, :2] = (0x30, 0x00)
+    st = ecdsa.verify_batch_arrays(pub_arr, dig_arr, old_sigs, old_lens,
+                                   reject_malleable=True, device=CPU)
+    old = np.where(enc_ok, st, ec.ERR_INVALID_ENCODING).astype(np.int32)
+    assert got.dtype == np.int32
+    assert got.tolist() == old.tolist() == want
 
 
 # --- the verify service --------------------------------------------------

@@ -2,8 +2,9 @@
 
 `secp256k1_tpu_torch.native` (its own copy of the C++ host runtime, built by
 g++ at first use under `build/`) against `hashlib`, the JAX package's
-pure-Python strict-DER parser and RFC 6979 DRBG (including the three-read
-state vectors), and the BIP-0340 tagged hash.  Every comparison is exact.
+pure-Python strict-DER parser, BIP-0066 validator and RFC 6979 DRBG
+(including the three-read state vectors), and the BIP-0340 tagged hash.
+Every comparison is exact.
 """
 
 import hashlib
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import bip0066_cases
 from secp256k1_tpu.models import codecs as jcodecs
 from secp256k1_tpu.models.rfc6979 import DrbgRFC6979 as JaxDrbg
 from secp256k1_tpu.models.schnorr import tagged_hash as jax_tagged_hash
@@ -161,3 +163,60 @@ def test_asn1_parse_batch_matches_the_python_parser():
         assert got == want == port, (i, sig.hex())
         seen.add(got[0])
     assert seen == {0, 1, 2}
+
+
+
+def _parse_status(parse, error, scalar_error, sig):
+    """(0, r, s), (1,) or (2,) from a pure-Python DER parser."""
+    try:
+        return (0,) + parse(sig)
+    except scalar_error:
+        return (2,)
+    except error:
+        return (1,)
+
+
+def test_bip0066_parse_batch_matches_the_python_forms():
+    """The consensus pass against BIP-0066's scalar validator, then the
+    strict-DER parser on the row without its sighash byte, in the JAX
+    package's pure-Python forms and in the port's: status 1 where either
+    fails encoding, 2 on a scalar out of range, else 0 with equal r and s;
+    a length past the row's width fails."""
+    from secp256k1_tpu.models import bitcoin as jbitcoin
+    from secp256k1_tpu_torch.models import bitcoin, codecs
+    # 74 bytes, strict DER but for BIP-0066's limit of 73.
+    r, s = b"\x00" + b"\x80" * 32, b"\x00" + b"\x80" * 33
+    long_row = (bytes([0x30, 71, 0x02, 33]) + r + bytes([0x02, 34]) + s
+                + b"\x01")
+    rows = bip0066_cases.cases() + [long_row]
+    max_len = max(len(s) for s in rows)
+    arr = np.zeros((len(rows) + 1, max_len), dtype=np.uint8)
+    lens = np.zeros((len(rows) + 1,), dtype=np.int32)
+    for i, s in enumerate(rows):
+        arr[i, :len(s)] = np.frombuffer(s, np.uint8)
+        lens[i] = len(s)
+    arr[-1] = arr[0]
+    lens[-1] = max_len + 1          # a valid row read past its width
+    r_arr, s_arr, status = native.bip0066_sig_parse_batch(arr, lens)
+    seen = set()
+    for i, sig in enumerate(rows):
+        want = port = (1,)
+        if jbitcoin.is_valid_signature_encoding_bip0066(sig):
+            want = _parse_status(jcodecs.parse_asn1_signature,
+                                 jcodecs.CodecError, jcodecs.ScalarError,
+                                 sig[:-1])
+        if bitcoin.is_valid_signature_encoding_bip0066(sig):
+            port = _parse_status(codecs.parse_asn1_signature,
+                                 codecs.CodecError, codecs.ScalarError,
+                                 sig[:-1])
+        got = (int(status[i]),)
+        if got[0] == 0:
+            got += (int.from_bytes(r_arr[i].tobytes(), "big"),
+                    int.from_bytes(s_arr[i].tobytes(), "big"))
+        elif got[0] == 1:
+            assert not r_arr[i].any() and not s_arr[i].any(), i
+        assert got == want == port, (i, sig.hex())
+        seen.add(got[0])
+    assert seen == {0, 1, 2}
+    assert status[-1] == 1
+    assert not r_arr[-1].any() and not s_arr[-1].any()
