@@ -1,21 +1,25 @@
-"""Bitcoin consensus validation: BIP-0066 strict DER and consensus ECDSA
-verify.
+"""Bitcoin consensus validation (BIP-0066 strict DER and consensus ECDSA
+verify) and Bitcoin Core's wallet signer.
 
 The port of `secp256k1_tpu.models.bitcoin`: the same BIP-0066 checks in
 the same order (a signature carries its trailing sighash byte), then ECDSA
-verify with SHA-256 digests, ASN.1 signatures and low s enforced.  Entry
-points take `device=None`, which means the GPU, and raise when there is
-none; `device="cpu"` runs the plain path.
+verify with SHA-256 digests, ASN.1 signatures and low s enforced.  Beside
+it, `sign_der_batch_arrays` signs as Bitcoin Core's `CKey::Sign` does
+(RFC 6979 nonces, low-R grinding, low s, strict DER and the sighash byte).
+Entry points take `device=None`, which means the GPU, and raise when there
+is none; `device="cpu"` runs the plain path.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
 from .. import native
 from ..utils import batching as bt
 from ..utils import config as cfg
-from ..utils import errors as ec  # noqa: F401
+from ..utils import errors as ec
 from . import ecdsa as ecdsamod
 
 _TAG_SEQUENCE_COMPOUND = 0x30
@@ -133,3 +137,76 @@ def verify_asn1_batch(pubs, digests, sigs, device=None) -> list:
     dev_ok = ecdsamod.verify_batch(pubs, digests, stripped,
                                    opts=_OPTS_CONSENSUS, device=device)
     return [a and b for a, b in zip(enc_ok, dev_ok)]
+
+
+# ---------------------------------------------------------------------------
+# Bitcoin Core's wallet signer.
+# ---------------------------------------------------------------------------
+
+# Core grinds until r is low, with no cap; a lane needs more than c
+# attempts with probability 2^-c.
+MAX_GRIND_ROUNDS = 256
+DER_ROW_BYTES = 72
+
+
+@dataclass
+class SignStats:
+    """Counters of one `sign_der_batch_arrays` call, filled by the call
+    given it: the rounds it ran (round 0 included) and its RFC 6979 DRBG
+    seedings (one a lane a round; a resample continues a seeded DRBG and
+    is not counted)."""
+    rounds: int = 0
+    seedings: int = 0
+    signatures: int = 0
+
+
+def _grind_extra(counter: int, lanes: int) -> np.ndarray:
+    """Core's extra entropy for attempt `counter`: WriteLE32 of the
+    counter, then 28 zero bytes, in every lane."""
+    rows = np.zeros((lanes, 32), np.uint8)
+    rows[:, :4] = np.frombuffer(counter.to_bytes(4, "little"), np.uint8)
+    return rows
+
+
+def sign_der_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
+                          sighash: int = 1, grind: bool = True, device=None,
+                          stats: SignStats | None = None):
+    """Batched signing as Bitcoin Core's wallet signs an input
+    (`CKey::Sign` over libsecp256k1's `nonce_function_rfc6979`), with
+    nothing kept between calls.
+
+    priv_bytes: [n, 32] u8 big-endian private scalars; digests: [n, 32] u8
+    sighash digests.  Round 0 signs every lane by `ecdsa.sign_batch_arrays`
+    with no additional data.  With `grind`, each round c >= 1 signs again
+    only the lanes whose r is still at least 2^255 (its DER integer would
+    take a 0x00 pad), with the additional data LE32(c) || 0^28, until no
+    lane is left.  s is low.  Returns (der [n, 72] u8, lens [n] int32,
+    status [n] int32): the strict DER signature and the sighash byte, at
+    most 71 bytes once ground, zero past its length.  A lane whose key is
+    not in [1, n) gets ERR_INVALID_SCALAR, a zero row and length 0.
+    `stats`, where given, receives the call's counters."""
+    sigs, _, status = ecdsamod.sign_batch_arrays(priv_bytes, digests,
+                                                 device=device)
+    n = sigs.shape[0]
+    rounds, seedings = 1, n
+    todo = np.nonzero(sigs[:, 0] >= 0x80)[0] if grind \
+        else np.zeros(0, np.int64)
+    while todo.size:
+        if rounds == MAX_GRIND_ROUNDS:
+            raise RuntimeError(f"{todo.size} lanes still high-R after "
+                               f"{rounds} rounds")
+        again, _, _ = ecdsamod.sign_batch_arrays(
+            priv_bytes[todo], digests[todo], device=device,
+            extra=_grind_extra(rounds, todo.size))
+        sigs[todo] = again
+        seedings += todo.size
+        rounds += 1
+        todo = todo[again[:, 0] >= 0x80]
+    der, lens = native.der_sig_encode_batch(sigs[:, :32], sigs[:, 32:],
+                                            sighash)
+    bad = status != ec.OK
+    der[bad] = 0
+    lens[bad] = 0
+    if stats is not None:
+        stats.rounds, stats.seedings, stats.signatures = rounds, seedings, n
+    return np.ascontiguousarray(der[:, :DER_ROW_BYTES]), lens, status

@@ -530,10 +530,13 @@ def _sign_arrays_device(k_arr, e_arr, d_arr, device):
 
 
 def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
-                      device=None):
+                      device=None, extra: np.ndarray | None = None):
     """Deterministic (RFC 6979, SHA-256) batched sign on numpy arrays.
 
-    priv_bytes: [n, 32] u8 big-endian private scalars; digests: [n, 32] u8.
+    priv_bytes: [n, 32] u8 big-endian private scalars; digests: [n, 32] u8;
+    extra: None, or [n, 32] u8 rows of RFC 6979 3.6 additional data that
+    each lane's DRBG seed takes after the reduced digest (libsecp256k1's
+    `ndata`).
     The host derives every lane's first nonce candidate in one native DRBG
     call and reduces the digests mod n; the scalar and point math runs on
     the device (`_sign_e2e_core`, one k*G launch).  Lanes flagged for a
@@ -546,9 +549,13 @@ def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
     if priv_bytes.shape != (n, 32) or digests.shape != (n, 32):
         raise ValueError(f"expected [n, 32] keys and digests, got "
                          f"{priv_bytes.shape} and {digests.shape}")
+    if extra is not None and extra.shape != (n, 32):
+        raise ValueError(f"expected [{n}, 32] extra rows, got {extra.shape}")
     priv_bytes = np.ascontiguousarray(priv_bytes, dtype=np.uint8)
     e_arr = _reduce_digest_np(digests)
-    k_arr, state_v, state_k = native.rfc6979_nonce_batch(priv_bytes, e_arr)
+    seed = (priv_bytes, e_arr) if extra is None else (priv_bytes, e_arr,
+                                                      extra)
+    k_arr, state_v, state_k = native.rfc6979_nonce_batch(*seed)
     sigs, recid, resample, bad = _sign_arrays_device(k_arr, e_arr,
                                                      priv_bytes, device)
     todo = np.nonzero(resample & ~bad)[0]

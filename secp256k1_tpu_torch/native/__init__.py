@@ -1,9 +1,10 @@
 """The port's native host runtime: ctypes bindings to `hostcrypto.cpp`.
 
-Batched SHA-256, the RFC 6979 HMAC-DRBG (first candidate of every lane, and
-the continuation of one lane past a rejected candidate), BIP-0340 tagged
-hashes and the strict-DER ECDSA signature parse (alone, or behind BIP-0066
-for consensus verify), one C call per batch.
+Batched SHA-256, the RFC 6979 HMAC-DRBG (first candidate of every lane,
+with optional per-lane additional data, and the continuation of one lane
+past a rejected candidate), BIP-0340 tagged hashes, the strict-DER ECDSA
+signature parse (alone, or behind BIP-0066 for consensus verify) and the
+strict-DER signature encode, one C call per batch.
 
 The library is built at first use with `g++ -O2 -shared -fPIC` into
 
@@ -72,8 +73,8 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(path)
         L.sha256_batch.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_size_t,
                                    _U8P]
-        L.rfc6979_nonce_batch.argtypes = [_U8P, _U8P, ctypes.c_size_t,
-                                          _U8P, _U8P, _U8P]
+        L.rfc6979_nonce_batch.argtypes = [_U8P, _U8P, _U8P,
+                                          ctypes.c_size_t, _U8P, _U8P, _U8P]
         L.rfc6979_continue.argtypes = [_U8P, _U8P, _U8P]
         L.tagged_hash_batch.argtypes = [_U8P, _U8P, ctypes.c_size_t,
                                         _U8P, ctypes.c_size_t,
@@ -82,9 +83,11 @@ def lib() -> ctypes.CDLL:
         for fn in (L.asn1_sig_parse_batch, L.bip0066_sig_parse_batch):
             fn.argtypes = [_U8P, _I32P, ctypes.c_size_t, ctypes.c_size_t,
                            _U8P, _U8P, _U8P]
+        L.der_sig_encode_batch.argtypes = [_U8P, _U8P, ctypes.c_size_t,
+                                           ctypes.c_uint8, _U8P, _I32P]
         for fn in (L.sha256_batch, L.rfc6979_nonce_batch, L.rfc6979_continue,
                    L.tagged_hash_batch, L.asn1_sig_parse_batch,
-                   L.bip0066_sig_parse_batch):
+                   L.bip0066_sig_parse_batch, L.der_sig_encode_batch):
             fn.restype = None
         _LIB = L
         return _LIB
@@ -111,19 +114,30 @@ def sha256_batch(msgs: np.ndarray) -> np.ndarray:
     return out
 
 
-def rfc6979_nonce_batch(keys: np.ndarray, digests: np.ndarray):
+def rfc6979_nonce_batch(keys: np.ndarray, digests: np.ndarray,
+                        extra: np.ndarray | None = None):
     """[B, 32] keys and [B, 32] digest scalars -> (first candidate k
-    [B, 32], DRBG state V [B, 32], DRBG state K [B, 32])."""
+    [B, 32], DRBG state V [B, 32], DRBG state K [B, 32]).
+
+    `extra`, [B, 32] u8 rows or None, is RFC 6979 3.6 additional data:
+    each lane's DRBG is seeded with key || digest || extra (96 bytes), as
+    libsecp256k1's `nonce_function_rfc6979` seeds it when given 32 bytes of
+    data.  None seeds with key || digest alone."""
     keys = _rows(keys, 32)
     digests = _rows(digests, 32)
     b = keys.shape[0]
     if digests.shape[0] != b:
         raise ValueError("keys and digests differ in length")
+    if extra is not None:
+        extra = _rows(extra, 32)
+        if extra.shape[0] != b:
+            raise ValueError("extra and keys differ in length")
     out = np.empty((b, 32), dtype=np.uint8)
     sv = np.empty((b, 32), dtype=np.uint8)
     sk = np.empty((b, 32), dtype=np.uint8)
-    lib().rfc6979_nonce_batch(_p(keys), _p(digests), b, _p(out), _p(sv),
-                              _p(sk))
+    lib().rfc6979_nonce_batch(_p(keys), _p(digests),
+                              None if extra is None else _p(extra), b,
+                              _p(out), _p(sv), _p(sk))
     return out, sv, sk
 
 
@@ -172,6 +186,28 @@ def bip0066_sig_parse_batch(sigs: np.ndarray, lens: np.ndarray):
     Arguments and returns as `asn1_sig_parse_batch`; a BIP-0066 failure is
     status 1 with r = s = 0."""
     return _sig_parse("bip0066_sig_parse_batch", sigs, lens)
+
+
+def der_sig_encode_batch(r: np.ndarray, s: np.ndarray, sighash: int):
+    """Batched strict-DER encode (BIP-0066) with a trailing sighash byte.
+
+    r, s: [B, 32] u8 big-endian rows.  Returns (rows [B, 73] u8, lens [B]
+    int32): SEQUENCE { INTEGER r, INTEGER s } with minimal integers (a 0x00
+    byte only in front of a set top bit), then the sighash byte; bytes past
+    a row's length are zero.  73 is BIP-0066's maximum, reached only where
+    both r and s have their top bit set."""
+    r = _rows(r, 32)
+    s = _rows(s, 32)
+    b = r.shape[0]
+    if s.shape[0] != b:
+        raise ValueError("r and s differ in length")
+    if not 0 <= sighash <= 255:
+        raise ValueError(f"sighash {sighash} is not a byte")
+    out = np.empty((b, 73), dtype=np.uint8)
+    lens = np.empty((b,), dtype=np.int32)
+    lib().der_sig_encode_batch(_p(r), _p(s), b, sighash, _p(out),
+                               lens.ctypes.data_as(_I32P))
+    return out, lens
 
 
 def tagged_hash_batch(tag: bytes, p1: np.ndarray | None,

@@ -1,12 +1,14 @@
 // Native host-side batch crypto of the PyTorch port: SHA-256, HMAC-SHA256,
-// RFC 6979 nonce derivation, BIP-0340 tagged hashes and the strict-DER
-// signature parse (alone, or behind BIP-0066's encoding rules for consensus
-// verify), as C batch APIs loaded from Python with ctypes
+// RFC 6979 nonce derivation (with optional per-lane additional data),
+// BIP-0340 tagged hashes, the strict-DER signature parse (alone, or behind
+// BIP-0066's encoding rules for consensus verify) and the strict-DER
+// signature encode, as C batch APIs loaded from Python with ctypes
 // (secp256k1_tpu_torch/native/__init__.py).
 //
 // A copy of secp256k1_tpu/native/hostcrypto.cpp, so that the port never
-// loads anything of the JAX package, with one entry more: the BIP-0066
-// checks in front of the parse (bip0066_sig_parse_batch).  The host feeds
+// loads anything of the JAX package, with more: the BIP-0066 checks in
+// front of the parse (bip0066_sig_parse_batch), RFC 6979 3.6 additional
+// data in rfc6979_nonce_batch, and the DER encode (der_sig_encode_batch).  The host feeds
 // the GPU with byte planes; nonce derivation is ~19 sequential HMAC
 // invocations per signature and a DER parse is byte-by-byte branching, both
 // far slower through Python call by call than here.
@@ -170,25 +172,31 @@ void sha256_batch(const uint8_t* msgs, size_t msg_len, size_t batch,
   }
 }
 
-// Batched RFC 6979 nonce derivation: for each lane, HMAC-DRBG(x, e) per
-// RFC 6979 3.2 steps b-g then one generate step (h).  Inputs [B,32]+[B,32],
-// output first candidate k [B,32] (rejection handled by the caller; a retry
-// re-enters via rfc6979_continue with the saved state).
+// Batched RFC 6979 nonce derivation: for each lane, HMAC-DRBG seeded with
+// x || e (|| extra) per RFC 6979 3.2 steps b-g, then one generate step (h).
+// Inputs [B,32] keys and [B,32] reduced digests, and either NULL or [B,32]
+// additional data (RFC 6979 3.6), appended to the seed after e as
+// libsecp256k1's nonce_function_rfc6979 appends its 32 bytes of data.
+// Output: first candidate k [B,32] (rejection handled by the caller; a
+// retry re-enters via rfc6979_continue with the saved state).
 void rfc6979_nonce_batch(const uint8_t* keys32, const uint8_t* digests32,
+                         const uint8_t* extra32 /* [B,32] or NULL */,
                          size_t batch, uint8_t* out32,
                          uint8_t* state_v /* [B,32] */,
                          uint8_t* state_k /* [B,32] */) {
+  const size_t n_seed = extra32 ? 5 : 4;
   for (size_t i = 0; i < batch; i++) {
     const uint8_t* x = keys32 + 32 * i;
     const uint8_t* e = digests32 + 32 * i;
+    const uint8_t* a = extra32 ? extra32 + 32 * i : nullptr;
     uint8_t v[32], k[32];
     std::memset(v, 0x01, 32);
     std::memset(k, 0x00, 32);
     const uint8_t zero = 0x00, one = 0x01;
     {  // step d
-      const uint8_t* parts[4] = {v, &zero, x, e};
-      const size_t lens[4] = {32, 1, 32, 32};
-      hmac_sha256(k, 32, parts, lens, 4, k);
+      const uint8_t* parts[5] = {v, &zero, x, e, a};
+      const size_t lens[5] = {32, 1, 32, 32, 32};
+      hmac_sha256(k, 32, parts, lens, n_seed, k);
     }
     {  // step e
       const uint8_t* parts[1] = {v};
@@ -196,9 +204,9 @@ void rfc6979_nonce_batch(const uint8_t* keys32, const uint8_t* digests32,
       hmac_sha256(k, 32, parts, lens, 1, v);
     }
     {  // step f
-      const uint8_t* parts[4] = {v, &one, x, e};
-      const size_t lens[4] = {32, 1, 32, 32};
-      hmac_sha256(k, 32, parts, lens, 4, k);
+      const uint8_t* parts[5] = {v, &one, x, e, a};
+      const size_t lens[5] = {32, 1, 32, 32, 32};
+      hmac_sha256(k, 32, parts, lens, n_seed, k);
     }
     {  // step g
       const uint8_t* parts[1] = {v};
@@ -415,6 +423,51 @@ void bip0066_sig_parse_batch(const uint8_t* sigs, const int32_t* lens,
     std::memset(s, 0, 32);
     status[i] = len > max_len || !bip0066_valid(sig, len)
                     ? 1 : der_sig_parse(sig, len - 1, r, s);
+  }
+}
+
+}  // extern "C"
+
+// Batched strict-DER encode of ECDSA signatures, as libsecp256k1's
+// secp256k1_ecdsa_signature_serialize_der, plus one trailing sighash byte:
+// SEQUENCE { INTEGER r, INTEGER s } with each integer minimal (leading zero
+// bytes dropped, one kept for 0) and one 0x00 byte in front of a top bit
+// that is set.  Inputs [B,32] big-endian r and s rows; outputs [B,73] rows
+// (the BIP-0066 maximum; bytes past a row's length are zero) and [B] lengths
+// with the sighash byte.
+namespace {
+
+size_t der_int(const uint8_t* v32, uint8_t* out) {
+  size_t skip = 0;
+  while (skip < 31 && v32[skip] == 0) skip++;
+  const bool pad = v32[skip] & 0x80;
+  const size_t len = 32 - skip + (pad ? 1 : 0);
+  out[0] = 0x02;
+  out[1] = uint8_t(len);
+  size_t o = 2;
+  if (pad) out[o++] = 0x00;
+  std::memcpy(out + o, v32 + skip, 32 - skip);
+  return 2 + len;
+}
+
+}  // namespace
+
+extern "C" {
+
+void der_sig_encode_batch(const uint8_t* r32, const uint8_t* s32,
+                          size_t batch, uint8_t sighash,
+                          uint8_t* out /* [B,73] */,
+                          int32_t* lens /* [B] */) {
+  for (size_t i = 0; i < batch; i++) {
+    uint8_t* row = out + 73 * i;
+    std::memset(row, 0, 73);
+    size_t o = 2;
+    o += der_int(r32 + 32 * i, row + o);
+    o += der_int(s32 + 32 * i, row + o);
+    row[0] = 0x30;
+    row[1] = uint8_t(o - 2);
+    row[o++] = sighash;
+    lens[i] = int32_t(o);
   }
 }
 

@@ -113,7 +113,8 @@ def test_signing_entry_points_raise_without_a_gpu():
 
 
 def test_slice_entry_points_raise_without_a_gpu():
-    """Hash-to-curve, consensus verify and the verify service."""
+    """Hash-to-curve, consensus verify, the wallet signer and the verify
+    service."""
     _need_no_gpu()
     from secp256k1_tpu_torch.models import bitcoin, h2c, service
     msgs = np.zeros((1, 4), np.uint8)
@@ -130,6 +131,8 @@ def test_slice_entry_points_raise_without_a_gpu():
         lambda: bitcoin.verify_asn1_batch_arrays(
             np.full((1, 33), 2, np.uint8), np.zeros((1, 32), np.uint8),
             np.zeros((1, 9), np.uint8), np.full((1,), 9, np.int32)),
+        lambda: bitcoin.sign_der_batch_arrays(np.ones((1, 32), np.uint8),
+                                              np.zeros((1, 32), np.uint8)),
         lambda: service.VerifyService(),
     ]
     for call in calls:

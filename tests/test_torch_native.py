@@ -220,3 +220,46 @@ def test_bip0066_parse_batch_matches_the_python_forms():
     assert seen == {0, 1, 2}
     assert status[-1] == 1
     assert not r_arr[-1].any() and not s_arr[-1].any()
+
+
+N_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+DER_EDGES = [1, 0x7F, 0x80, 0xFF, 0x100, 2**64 + 5, 2**247, 2**248 - 1,
+             0x7F << 240, 2**255 - 1, 2**255, N_ORDER - 1]
+
+
+def test_der_encode_batch_round_trips_through_the_bip0066_parse():
+    """Every pair of edge values (1, a set top bit in each byte position
+    that takes a 0x00 pad, leading zero bytes, n - 1) and seeded ones:
+    the rows equal the plain DER encoding with the sighash byte, and parse
+    back under BIP-0066 to the same r and s."""
+    import wallet_sign_ref as ref
+    rng = np.random.default_rng(66)
+    vals = DER_EDGES + [int.from_bytes(rng.bytes(32), "big") % N_ORDER
+                        for _ in range(8)]
+    pairs = [(r, s) for r in vals for s in vals]
+    r_rows = np.stack([np.frombuffer(r.to_bytes(32, "big"), np.uint8)
+                       for r, _ in pairs])
+    s_rows = np.stack([np.frombuffer(s.to_bytes(32, "big"), np.uint8)
+                       for _, s in pairs])
+    for sighash in (0x01, 0x83):
+        rows, lens = native.der_sig_encode_batch(r_rows, s_rows, sighash)
+        assert rows.shape == (len(pairs), 73) and lens.dtype == np.int32
+        for i, (r, s) in enumerate(pairs):
+            want = ref.der(r, s) + bytes([sighash])
+            assert rows[i, :lens[i]].tobytes() == want, (r, s)
+            assert not rows[i, lens[i]:].any()
+        assert lens.max() == 73 and lens.min() == 9
+        r_arr, s_arr, status = native.bip0066_sig_parse_batch(rows, lens)
+        assert status.tolist() == [0] * len(pairs)
+        assert np.array_equal(r_arr, r_rows) and np.array_equal(s_arr, s_rows)
+
+
+def test_der_encode_batch_checks_its_arguments():
+    one = np.zeros((2, 32), np.uint8)
+    with pytest.raises(ValueError):
+        native.der_sig_encode_batch(one, one[:1], 1)
+    with pytest.raises(ValueError):
+        native.der_sig_encode_batch(one, one, 256)
+    rows, lens = native.der_sig_encode_batch(one, one, 1)
+    assert lens.tolist() == [9, 9]
+    assert rows[0, :9].tobytes() == bytes.fromhex("300602010002010001")
