@@ -63,7 +63,10 @@ the run with a non-zero exit code:
    MSM (W = 64, w = 4), of a sort + scan MSM (W = 32, w = 8) and of edge
    cases (the identity, equal consecutive sums, a sum equal to or the
    negation of the accumulator at its add), those also against python
-   ints;
+   ints; the DRBG kernel `k_rfc6979` (RFC 6979's HMAC-DRBG, which the JAX
+   package runs on its host) without and with additional data, candidates
+   0 and 1, against the native DRBG at 65,536 lanes and its plain version
+   at 65,536 and 1,024 lanes, timed at both;
 4. paths (65,536 lanes), each with the launch counts set to 0 just before
    it and read just after, failing if a kernel of that path was not
    launched, a plain version was called or `mod_pow2k` was launched (the
@@ -73,8 +76,11 @@ the run with a non-zero exit code:
      keys, every status against the expected one, two chain launches
      (the square root and the root of `invert_batch`);
    - ECDSA sign: `sign_batch_arrays` (the 20 RFC 6979 vectors in the batch,
-     byte-exact; 256 lanes against a python-int signer), every signature
-     verified by `verify_batch_arrays`;
+     byte-exact; 256 lanes against a python-int signer; the nonces from the
+     DRBG kernel), every signature verified by `verify_batch_arrays`;
+   - the wallet signer: `bitcoin.sign_der_batch_arrays` on the same lanes
+     with the native DRBG refusing every call, one DRBG launch a round,
+     the vectors' lanes and 64 others against `tests/wallet_sign_ref.py`;
    - recover: `recover_batch` gives back every lane's signer;
    - keyed verify: `verify_batch_arrays_keyed` with corrupted lanes, every
      status against the expected one;
@@ -115,18 +121,20 @@ the run with a non-zero exit code:
    paths is then held bit-exact against its plain version on the
    operands it was given;
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
-   DER parse); sign/s end to end with the host DRBG apart and of
-   `_sign_e2e_core`; recover/s; keyed verify/s; Schnorr sign/s and verify/s;
-   MSM points/s at 2^16, 2^20 and 2^22 points and the bucket kernel's share
-   of the 2^20 call; ECDH/s end to end and of `_ecdh_e2e_core` under each
-   GLV engine; the verify and sign cores under each fixed-base switch;
+   DER parse); sign/s end to end and of `_sign_e2e_core` (its DRBG kernel
+   included), beside the native host DRBG's time; recover/s; keyed
+   verify/s; Schnorr sign/s and verify/s; MSM points/s at 2^16, 2^20 and
+   2^22 points and the bucket kernel's share of the 2^20 call; ECDH/s end
+   to end and of `_ecdh_e2e_core` under each GLV engine; the verify and
+   sign cores under each fixed-base switch;
    h2c/s end to end, of `expand_message_xmd_batch` alone and of the
    `_ro_bytes_core` and `_nu_bytes_core` device cores; consensus verify
    end to end beside `verify_batch_arrays`; with `--profile`, the device
    time by kernel and the idle share of one `_verify_impl`, one
    `_sign_e2e_core`, one `_ecdh_e2e_core`, one `_ro_bytes_core`, one
-   `_nu_bytes_core` and one 2^20-point `multi_scalar_mult` call (the last
-   in a child process of this script, `--profile-msm`);
+   `_nu_bytes_core` and one 2^20-point `multi_scalar_mult` call (the MSM
+   and the sign core each in a child process of this script,
+   `--profile-msm` and `--profile-sign`);
 6. sharding (one card hosts one NCCL rank, so at world size 1, the
    backend and world size printed; the process group destroyed at the
    end): `sharded_verify_fn` on the verify planes of phase 5 with r
@@ -173,6 +181,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -217,6 +226,9 @@ KERNEL_META = {
     # the fold 256 point_double (and 64 point_add) one-lane calls at w = 4.
     "mod_pow_chain": (f"{CSRC}/modops.cu", f"{PALLAS}:784"),
     "msm_fold": (f"{CSRC}/msm.cu", f"{PALLAS}:1380"),
+    # RFC 6979's DRBG, which the JAX package runs on its host.
+    "rfc6979_nonce": (f"{CSRC}/drbg.cu",
+                      "none (secp256k1_tpu/native/hostcrypto.cpp)"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -236,6 +248,7 @@ KERNEL_SYMBOL = {
     "point_lookup_add": "k_lookup_add",
     "mod_pow_chain": "k_mod_pow_chain",
     "msm_fold": "k_msm_fold",
+    "rfc6979_nonce": "k_rfc6979",
 }
 # The kernels each path must launch.  mod_square is launched where a path
 # takes a square root (SEC1 decompression, recovery, lift_x).
@@ -247,6 +260,8 @@ VERIFY_KERNELS = GLV_KERNELS + ("base_windowed_add_final",)
 VERIFY_CORE_KERNELS = FIELD_KERNELS + (
     "glv_windowed_mult_signed_from_points", "base_windowed_add_final")
 SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
+# ECDSA sign derives its nonces on the card: the DRBG kernel first.
+ECDSA_SIGN_KERNELS = SIGN_KERNELS + ("rfc6979_nonce",)
 POINT_KERNELS = ("point_add", "point_double")
 MSM_KERNELS = ("msm_bucket_accumulate_all", "point_add", "msm_fold")
 SCAN_KERNELS = ("point_add", "msm_fold")
@@ -264,11 +279,12 @@ ECDH_ENGINES = (
 )
 BASE_SWITCHES = (
     ("base_signed=0", {"base_signed": False},
-     GLV_KERNELS + ("base_windowed_add", "point_add"), SIGN_KERNELS),
+     GLV_KERNELS + ("base_windowed_add", "point_add"), ECDSA_SIGN_KERNELS),
     ("base_window=4", {"base_window": 4},
      GLV_KERNELS + ("point_add_mixed", "point_add"),
-     FIELD_KERNELS + ("point_add_mixed",)),
-    ("base_window=12", {"base_window": 12}, VERIFY_KERNELS, SIGN_KERNELS),
+     FIELD_KERNELS + ("point_add_mixed", "rfc6979_nonce")),
+    ("base_window=12", {"base_window": 12}, VERIFY_KERNELS,
+     ECDSA_SIGN_KERNELS),
 )
 # The kernels that no path launches, driven by the kernel phase only: the
 # JAX package's glv_windowed_mult (from prebuilt tables), which no path of
@@ -310,6 +326,12 @@ PATH_LAUNCHES: dict = {}        # path label -> {kernel: launches}
 CHAIN_SHAPES: dict = {}         # path label -> {"exponent at width": n}
 ONE_LANE: dict = {}             # path label -> {kernel: one-lane launches}
 CORE_ROUNDS = 5                 # --cores: rounds of medians of 7 a core
+# The DRBG kernel: checked at LANES lanes, timed at these widths (the sign
+# path's first round, and a narrow grind round), on data of its own seed;
+# the wallet signer's lanes held to the python-int reference signer.
+DRBG_TIMED_WIDTHS = (LANES, 1024)
+DRBG_SEED = SEED + 17
+WALLET_SAMPLED_LANES = 64
 GLV_ROUNDS = 3                  # --glv: rounds of each GLV kernel's times
 PROFILE_ATTEMPTS = 5
 # Host seconds of quiet at each end of a profiler session, so that no
@@ -317,7 +339,12 @@ PROFILE_ATTEMPTS = 5
 # profiler dropped every device activity of a session up to the end of
 # an MSM's 72 ms bucket kernel, with pauses of 0.1 to 1.6 s before the
 # work alike, while the same session kept them in a fresh process: the
-# profiled MSM runs in a process of its own (`--profile-msm`).
+# profiled MSM runs in a process of its own (`--profile-msm`).  Late in a
+# run it also lost `k_rfc6979`, the first launch of `_sign_e2e_core`, from
+# every session of that core, whether a kernel of its own opened the
+# session or not, while it kept the core's other kernels there and every
+# launch of it in a fresh process: the profiled sign core runs in a process
+# of its own too (`--profile-sign`).
 PROFILE_PAD_S = 0.1
 TESTDATA = os.path.join(HERE, "tests", "testdata")
 # The two field cores (csrc/field_probe.cu; no path launches these):
@@ -972,6 +999,55 @@ def kernel_checks(int_rate, curve, rng, device):
            50, 5, PT_DOUBLE * lanes, 6 * lane_bytes * lanes, "point_double")
     check_points(got, [hc.add(x, x) for x in a], hc, "point_double")
     return res
+
+
+def drbg_checks(int_rate, res, device):
+    """The DRBG kernel `k_rfc6979` (`rfc6979_nonce`) without and with
+    additional data, candidates 0 and 1: at LANES lanes against the native
+    DRBG on the host (`rfc6979_nonce_batch`, then `rfc6979_continue`), and
+    at each of DRBG_TIMED_WIDTHS bit-exact against its plain version on the
+    card and timed (profiler, cold L2) beside its bound of 32-bit integer
+    operations (`profiling.SHA256_BLOCK_OPS` a compression).  Its data come
+    from a generator of its own."""
+    from secp256k1_tpu_torch import native
+    from secp256k1_tpu_torch.models import ecdsa
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    from secp256k1_tpu_torch.utils import batching as bt
+    from secp256k1_tpu_torch.utils.profiling import (SHA256_BLOCK_OPS,
+                                                     rfc6979_blocks)
+    name = "rfc6979_nonce"
+    rng = np.random.default_rng(DRBG_SEED)
+    rows = [rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+            for _ in range(3)]
+    rows[1] = ecdsa._reduce_digest_np(rows[1])
+    planes = [bt.byte_plane_np(r, LANES, device) for r in rows]
+    for extra in (False, True):
+        first, sv, sk = native.rfc6979_nonce_batch(*rows[:2 + extra])
+        want = [first, np.stack([native.rfc6979_continue(sv, sk, i)
+                                 for i in range(LANES)])]
+        for attempt in (0, 1):
+            tag = (f"{name} {'with' if extra else 'without'} extra data, "
+                   f"candidate {attempt}")
+            for lanes in DRBG_TIMED_WIDTHS:
+                args = [p[:, :lanes].contiguous() for p in planes]
+                args = (args[0], args[1], args[2] if extra else None,
+                        attempt)
+                got = K.rfc6979_nonce(*args)
+                if lanes == LANES:
+                    wrong = int((got.cpu().numpy().T != want[attempt])
+                                .any(axis=1).sum())
+                    if wrong:
+                        fail(f"kernel {tag}: {wrong} of {LANES} lanes "
+                             f"differ from the native DRBG")
+                    say(f"kernel {tag}: all {LANES} lanes equal the native "
+                        f"DRBG")
+                timed_check(int_rate, res, name, f"{tag} at {lanes} lanes",
+                            max_abs_err([got],
+                                        [K.rfc6979_nonce_plain(*args)]),
+                            lambda: K.rfc6979_nonce(*args),
+                            lambda: K.rfc6979_nonce_plain(*args), 20, 1,
+                            rfc6979_blocks(extra, attempt) * SHA256_BLOCK_OPS
+                            * lanes, (96 + 32 * extra) * lanes, lanes=lanes)
 
 
 def chain_work(e, modulus, lanes):
@@ -1849,7 +1925,7 @@ def ecdsa_sign_path(curve, signers, rng):
     from secp256k1_tpu_torch.models import codecs, ecdsa, keys
     from secp256k1_tpu_torch.utils import errors as ec
     sigs, recid, status = run_path(
-        "ECDSA sign", SIGN_KERNELS,
+        "ECDSA sign", ECDSA_SIGN_KERNELS,
         lambda: ecdsa.sign_batch_arrays(signers.priv, signers.digests))
     check_statuses("ECDSA sign", status, np.zeros_like(status))
     for j, (_, _, want) in enumerate(signers.kat):
@@ -1912,6 +1988,48 @@ def ecdsa_sign_path(curve, signers, rng):
                        reject_malleable=True))
     check_statuses("keyed verify", got, expected)
     return sigs, recid, ders, lens, cache
+
+
+def wallet_sign_path(signers, rng):
+    """Bitcoin Core's wallet signer (`bitcoin.sign_der_batch_arrays`, low-R
+    grinding) on the signers' LANES lanes with the native DRBG refusing
+    every call: one DRBG launch a round (no lane resampled), every status
+    OK; the RFC 6979 vectors' lanes and WALLET_SAMPLED_LANES others against
+    the python-int reference signer `tests/wallet_sign_ref.py`."""
+    from secp256k1_tpu_torch import native
+    from secp256k1_tpu_torch.models import bitcoin
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import wallet_sign_ref as ref
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the native DRBG was entered")
+    saved = native.rfc6979_nonce_batch, native.rfc6979_continue
+    native.rfc6979_nonce_batch = native.rfc6979_continue = refuse
+    stats = bitcoin.SignStats()
+    try:
+        der, lens, status = run_path(
+            "wallet sign", ECDSA_SIGN_KERNELS,
+            lambda: bitcoin.sign_der_batch_arrays(
+                signers.priv, signers.digests, stats=stats))
+    finally:
+        native.rfc6979_nonce_batch, native.rfc6979_continue = saved
+    check_statuses("wallet sign", status, np.zeros_like(status))
+    launches = PATH_LAUNCHES["wallet sign"]["rfc6979_nonce"]
+    if launches != stats.rounds:
+        fail(f"wallet sign: {launches} rfc6979_nonce launches over "
+             f"{stats.rounds} rounds")
+    picks = list(range(len(signers.kat))) + rng.choice(
+        np.arange(len(signers.kat), LANES), WALLET_SAMPLED_LANES,
+        replace=False).tolist()
+    for i in picks:
+        want = ref.core_sign(signers.scalars[signers.key_of[i]],
+                             signers.digests[i].tobytes())[0]
+        if der[i, :lens[i]].tobytes() != want:
+            fail(f"wallet sign: lane {i} differs from the reference signer")
+    say(f"path wallet sign: {stats.rounds} rounds, {stats.seedings} DRBG "
+        f"seedings, {launches} rfc6979_nonce launches (one a round), the "
+        f"native DRBG never entered; {len(picks)} lanes equal the python-int"
+        f" reference signer")
 
 
 def schnorr_path(curve, signers, rng):
@@ -2128,15 +2246,13 @@ def ecdh_core_planes(batch, device):
 
 
 def sign_core_planes(signers, device):
-    """(nonce, digest, key) byte planes of _sign_e2e_core: the RFC 6979
-    nonces of the signers' keys and digests."""
-    from secp256k1_tpu_torch import native
+    """(key, reduced digest, no extra data, candidate 0): the arguments of
+    _sign_e2e_core, which derives the nonces itself."""
     from secp256k1_tpu_torch.models import ecdsa
     from secp256k1_tpu_torch.utils import batching as bt
     e_arr = ecdsa._reduce_digest_np(signers.digests)
-    k_arr = native.rfc6979_nonce_batch(signers.priv, e_arr)[0]
     return [bt.byte_plane_np(a, LANES, device)
-            for a in (k_arr, e_arr, signers.priv)]
+            for a in (signers.priv, e_arr)] + [None, 0]
 
 
 def recover_core_args(sigs, recid, digests, device):
@@ -2249,10 +2365,11 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
     core = median_cuda_ms(lambda: ecdsa._sign_e2e_core(*planes))
     say(f"throughput: ECDSA sign_batch_arrays end to end {sign[0]:.1f} ms "
         f"(median of 3, range {sign[1]:.1f}-{sign[2]:.1f}) at {LANES} "
-        f"lanes = {rate(sign[0]):.1f} sign/s; its host RFC 6979 DRBG alone "
-        f"{drbg[0]:.1f} ms (median of 3); _sign_e2e_core from byte planes "
-        f"{core[0]:.3f} ms (median of 7, range {core[1]:.3f}-{core[2]:.3f})"
-        f" = {rate(core[0]):.1f} sign/s")
+        f"lanes = {rate(sign[0]):.1f} sign/s; _sign_e2e_core from byte "
+        f"planes, the DRBG kernel included, {core[0]:.3f} ms (median of 7, "
+        f"range {core[1]:.3f}-{core[2]:.3f}) = {rate(core[0]):.1f} sign/s; "
+        f"the native host DRBG, off the path, {drbg[0]:.1f} ms (median of "
+        f"3)")
 
     rec_args = recover_core_args(sigs, recid, digests, device)
     rec_core = median_cuda_ms(lambda: ecdsa._recover_core(*rec_args))
@@ -3196,6 +3313,26 @@ def sharding_phase(triples, data, res, verify_ms, device):
         dist.destroy_process_group()
 
 
+def profile_sign():
+    """`--profile-sign`: one profiled `_sign_e2e_core` at LANES lanes of
+    seeded keys and digests, in a fresh process (see PROFILE_PAD_S); the
+    kernels are already built."""
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script drives the port on a GPU")
+    import_port()
+    from secp256k1_tpu_torch.models import ecdsa
+    rng = np.random.default_rng(DRBG_SEED)
+    priv = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    priv[:, 0] &= 0x7F
+    digests = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    planes = sign_core_planes(types.SimpleNamespace(priv=priv,
+                                                    digests=digests),
+                              torch.device("cuda"))
+    profile_core(f"_sign_e2e_core at {LANES} lanes (a process of its own)",
+                 lambda: ecdsa._sign_e2e_core(*planes),
+                 [KERNEL_SYMBOL[name] for name in ECDSA_SIGN_KERNELS])
+
+
 def profile_msm():
     """`--profile-msm`: one profiled multi_scalar_mult at MSM_POINTS, in a
     fresh process (see PROFILE_PAD_S); the kernels are already built."""
@@ -3307,6 +3444,8 @@ def glv_only():
 def main():
     if "--profile-msm" in sys.argv[1:]:
         return profile_msm()
+    if "--profile-sign" in sys.argv[1:]:
+        return profile_sign()
     if "--trace-entry" in sys.argv[1:]:
         return trace_entry()
     if "--cores" in sys.argv[1:]:
@@ -3329,6 +3468,7 @@ def main():
     rng = np.random.default_rng(SEED)
     curve = HostCurve()
     res = kernel_checks(int_rate, curve, rng, device)
+    drbg_checks(int_rate, res, device)
     phase("kernels")
     engine_kernel_checks(int_rate, curve, rng, device, res)
     phase("engine kernels")
@@ -3347,6 +3487,7 @@ def main():
     arrays = main_path(triples, rng, curve.hc, wide=False)
     main_path(triples, rng, curve.hc, wide=True)
     ecdsa_out = ecdsa_sign_path(curve, signers, rng)
+    wallet_sign_path(signers, np.random.default_rng(DRBG_SEED))
     schnorr_out = schnorr_path(curve, signers, rng)
     phase("signature paths")
     ecdh_batch = EcdhBatch(curve, signers, rng)
@@ -3379,9 +3520,6 @@ def main():
         profile_core(f"_verify_impl at {LANES} lanes",
                      lambda: ecdsa._verify_impl(*verify_planes),
                      [KERNEL_SYMBOL[name] for name in VERIFY_CORE_KERNELS])
-        profile_core(f"_sign_e2e_core at {LANES} lanes",
-                     lambda: ecdsa._sign_e2e_core(*sign_planes),
-                     [KERNEL_SYMBOL[name] for name in SIGN_KERNELS])
         from secp256k1_tpu_torch.models import ecdh
         profile_core(f"_ecdh_e2e_core at {LANES} lanes",
                      lambda: ecdh._ecdh_e2e_core(*ecdh_planes),
@@ -3397,6 +3535,10 @@ def main():
                                 "--profile-msm"], cwd=HERE, timeout=600)
         if child.returncode:
             fail(f"the profiled MSM process exited {child.returncode}")
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--profile-sign"], cwd=HERE, timeout=600)
+        if child.returncode:
+            fail(f"the profiled sign core process exited {child.returncode}")
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "secp256k1_tpu.")))

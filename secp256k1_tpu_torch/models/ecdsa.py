@@ -1,12 +1,14 @@
 """Batched ECDSA (SEC 1 4.1.3 sign, 4.1.4 verify, 4.1.6 recover) on PyTorch.
 
-The port of `secp256k1_tpu.models.ecdsa`.  The host parses signatures and
-derives RFC 6979 nonces with the native library (`secp256k1_tpu_torch
-.native`); decompression, hash-to-scalar reduction, batch inversion and the
-group math run on the device, through the CUDA kernels of `ops/cuda` when
-the device is a GPU.  Signing computes k*G with the constant-time
-fixed-base kernel (the nonce is secret); verify and recover use the GLV
-and public-digit fixed-base kernels.
+The port of `secp256k1_tpu.models.ecdsa`.  The host parses signatures with
+the native library (`secp256k1_tpu_torch.native`); decompression,
+hash-to-scalar reduction, batch inversion and the group math run on the
+device, through the CUDA kernels of `ops/cuda` when the device is a GPU.
+`sign_batch_arrays` derives its RFC 6979 nonces on the device too (the
+`rfc6979_nonce` kernel, the sign core's first launch); `sign_batch`'s
+per-lane nonce readers use the native DRBG.  Signing computes k*G with the
+constant-time fixed-base kernel (the nonce is secret); verify and recover
+use the GLV and public-digit fixed-base kernels.
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; the CPU runs only when the caller passes `device="cpu"`.  A keyed
@@ -28,6 +30,7 @@ from ..ops import point as pt
 from ..ops import s11n
 from ..ops import scalar as sc
 from ..ops import table as tbl
+from ..ops.cuda import kernels as K
 from ..utils import batching as bt
 from ..utils import config as cfg
 from ..utils import errors as ec
@@ -158,12 +161,23 @@ def _sign_core(k, e, d):
     return r, s, recid, retry
 
 
-def _sign_e2e_core(k_bytes, e_bytes, d_bytes):
+def _sign_e2e_core(d_bytes, e_bytes, extra_bytes, attempt: int):
+    """Sign from byte planes: each lane's nonce candidate `attempt` of its
+    RFC 6979 DRBG seeded with key || e || extra (`K.rfc6979_nonce`; e the
+    digest reduced mod n, extra_bytes None or RFC 6979 3.6 additional
+    data), then `_sign_from_candidates`.  Returns (r bytes, s bytes,
+    recovery id, resample, bad_key) planes."""
+    k_bytes = K.rfc6979_nonce(d_bytes, e_bytes, extra_bytes, attempt)
+    return _sign_from_candidates(k_bytes, e_bytes, d_bytes)
+
+
+def _sign_from_candidates(k_bytes, e_bytes, d_bytes):
     """Sign from byte planes: candidate and key validity, then SEC1 4.1.3
-    and low-s.  k_bytes are raw DRBG candidates; a lane whose candidate is
-    not in [1, n), or whose r or s is 0, is flagged for a resample.  Bad
-    candidates and keys run with 1 in their place.  Returns (r bytes,
-    s bytes, recovery id, resample, bad_key) planes."""
+    and low-s (the JAX package's `_sign_e2e_core`).  k_bytes are raw DRBG
+    candidates; a lane whose candidate is not in [1, n), or whose r or s
+    is 0, is flagged for a resample.  Bad candidates and keys run with 1
+    in their place.  Returns (r bytes, s bytes, recovery id, resample,
+    bad_key) planes."""
     k = sc.S._bytes_to_limbs(k_bytes)
     k_bad = lb.geq_const(k, sc.S.m_limbs) | lb.is_zero(k)
     d = sc.S._bytes_to_limbs(d_bytes)
@@ -516,14 +530,16 @@ def verify_batch(pubs, digests, sigs, opts: cfg.ECDSAOptions | None = None,
         pubs, digests, sigs, opts=opts, device=device)]
 
 
-def _sign_arrays_device(k_arr, e_arr, d_arr, device):
-    """One `_sign_e2e_core` call on [n, 32] u8 rows: (sigs [n, 64] r || s,
+def _sign_arrays_device(d_arr, e_arr, extra, attempt, device):
+    """One `_sign_e2e_core` call on [n, 32] u8 key, reduced-digest and
+    extra (or None) rows at candidate `attempt`: (sigs [n, 64] r || s,
     recids [n], resample [n], bad_key [n])."""
-    n = k_arr.shape[0]
+    n = d_arr.shape[0]
     b = bt.bucket(n)
     r_b, s_b, recid, resample, bad = _sign_e2e_core(
-        bt.byte_plane_np(k_arr, b, device), bt.byte_plane_np(e_arr, b, device),
-        bt.byte_plane_np(d_arr, b, device))
+        bt.byte_plane_np(d_arr, b, device), bt.byte_plane_np(e_arr, b, device),
+        None if extra is None else bt.byte_plane_np(extra, b, device),
+        attempt)
     sigs = np.concatenate([_plane_rows(r_b, n), _plane_rows(s_b, n)], 1)
     return (sigs, recid[:n].cpu().numpy().astype(np.int32),
             resample[:n].cpu().numpy(), bad[:n].cpu().numpy())
@@ -537,11 +553,12 @@ def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
     extra: None, or [n, 32] u8 rows of RFC 6979 3.6 additional data that
     each lane's DRBG seed takes after the reduced digest (libsecp256k1's
     `ndata`).
-    The host derives every lane's first nonce candidate in one native DRBG
-    call and reduces the digests mod n; the scalar and point math runs on
-    the device (`_sign_e2e_core`, one k*G launch).  Lanes flagged for a
-    resample (candidate not in [1, n), r = 0 or s = 0; each about 2^-128)
-    continue their own DRBG natively and run again, until none is left.
+    The host reduces the digests mod n and uploads the rows; the device
+    derives every lane's nonce candidate (`_sign_e2e_core`: one
+    `rfc6979_nonce` launch, then one k*G launch and the scalar math).
+    Lanes flagged for a resample (candidate not in [1, n), r = 0 or s = 0;
+    each about 2^-128) run again at the next candidate of their DRBG, pass
+    c taking candidate c, until none is left.
     Returns (sigs [n, 64] u8 r || s, recids [n] int32, status [n] int32);
     a lane whose key is not in [1, n) gets ERR_INVALID_SCALAR and zeros."""
     device = bt.resolve_device(device)
@@ -549,23 +566,22 @@ def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
     if priv_bytes.shape != (n, 32) or digests.shape != (n, 32):
         raise ValueError(f"expected [n, 32] keys and digests, got "
                          f"{priv_bytes.shape} and {digests.shape}")
-    if extra is not None and extra.shape != (n, 32):
-        raise ValueError(f"expected [{n}, 32] extra rows, got {extra.shape}")
+    if extra is not None:
+        if extra.shape != (n, 32):
+            raise ValueError(f"expected [{n}, 32] extra rows, got "
+                             f"{extra.shape}")
+        extra = np.ascontiguousarray(extra, dtype=np.uint8)
     priv_bytes = np.ascontiguousarray(priv_bytes, dtype=np.uint8)
     e_arr = _reduce_digest_np(digests)
-    seed = (priv_bytes, e_arr) if extra is None else (priv_bytes, e_arr,
-                                                      extra)
-    k_arr, state_v, state_k = native.rfc6979_nonce_batch(*seed)
-    sigs, recid, resample, bad = _sign_arrays_device(k_arr, e_arr,
-                                                     priv_bytes, device)
+    sigs, recid, resample, bad = _sign_arrays_device(priv_bytes, e_arr, extra,
+                                                     0, device)
     todo = np.nonzero(resample & ~bad)[0]
-    for _ in range(MAX_SCALAR_RESAMPLES):
+    for attempt in range(1, MAX_SCALAR_RESAMPLES + 1):
         if not todo.size:
             break
-        k_next = np.stack([native.rfc6979_continue(state_v, state_k, i)
-                           for i in todo])
-        s2, v2, again, _ = _sign_arrays_device(k_next, e_arr[todo],
-                                               priv_bytes[todo], device)
+        s2, v2, again, _ = _sign_arrays_device(
+            priv_bytes[todo], e_arr[todo],
+            None if extra is None else extra[todo], attempt, device)
         sigs[todo] = s2
         recid[todo] = v2
         todo = todo[again]

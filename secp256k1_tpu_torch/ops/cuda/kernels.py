@@ -23,11 +23,15 @@ Two more wrappers run a chain of those kernels' work in one launch, where
 the JAX package runs the chain of `pallas_call`s inside one compiled
 program: `mod_pow_chain` (x^e for a public constant e: the chains of
 `ModRing.pow_const_chain`, of which `mod_pow2k` is the one-step case) and
-`msm_fold` (the Horner fold of `msm.combine_windows`).
+`msm_fold` (the Horner fold of `msm.combine_windows`).  One replaces no TPU
+kernel: `rfc6979_nonce`, RFC 6979's DRBG, which the JAX package runs on its
+host.
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
-Digit planes are int32 [W, B]; per-lane point tables int32 [15, 3, 16, B].
+Digit planes are int32 [W, B]; per-lane point tables int32 [15, 3, 16, B];
+the DRBG's byte planes uint8 [32, B] (row j byte j of each lane's
+big-endian value).
 
 The switches `mega_enabled`/`set_mega` and
 `mega_signed_enabled`/`set_mega_signed` are the JAX package's own
@@ -55,12 +59,12 @@ KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "base_windowed_add", "glv_windowed_mult_from_points",
            "msm_bucket_accumulate_all", "glv_windowed_mult", "point_add",
            "point_double", "point_double4", "point_add_mixed",
-           "point_lookup_add", "mod_pow_chain", "msm_fold")
+           "point_lookup_add", "mod_pow_chain", "msm_fold", "rfc6979_nonce")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 # Launches by (kernel, lanes, detail): detail the exponent of mod_pow_chain,
-# k of mod_pow2k, the window bits of msm_fold (lanes: its windows), else
-# None.
+# k of mod_pow2k, the window bits of msm_fold (lanes: its windows), the
+# attempt of rfc6979_nonce, else None.
 SHAPES: dict = {}
 
 
@@ -106,11 +110,12 @@ def _on_cpu(*ts) -> bool:
                      "tensors that all lie on the CPU or all on one GPU")
 
 
-def _check(name: str, t: torch.Tensor, rows: int, lanes: int) -> None:
-    if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != rows \
+def _check(name: str, t: torch.Tensor, rows: int, lanes: int,
+           dtype=torch.int32) -> None:
+    if t.dtype != dtype or t.dim() != 2 or t.shape[0] != rows \
             or t.shape[1] != lanes or not t.is_contiguous():
         raise ValueError(
-            f"{name}: expected a contiguous int32 [{rows}, {lanes}] tensor, "
+            f"{name}: expected a contiguous {dtype} [{rows}, {lanes}] tensor, "
             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
@@ -549,6 +554,120 @@ def msm_fold_plain(window_sums, window_bits: int):
     return tuple(c.contiguous() for c in acc)
 
 
+# SHA-256 (FIPS 180-4) for RFC 6979's DRBG: round constants, initial hash,
+# and the midstates of the all-zero HMAC key (the compressions of 64 bytes
+# of 0x36 and of 0x5c), as `csrc/drbg.cuh` has them.
+_SHA256_K = (
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2)
+_SHA256_IV = (0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a, 0x510e527f,
+              0x9b05688c, 0x1f83d9ab, 0x5be0cd19)
+_ZERO_KEY = ((0xf454dead, 0x9725214f, 0x90daf2a0, 0xdf1228ea, 0x64e5750f,
+              0xa3924181, 0x824a932b, 0xf8e04e32),
+             (0xd385480f, 0x7abb6477, 0x37c9c538, 0x5dd82467, 0x8e043a72,
+              0x753434b0, 0xdeb82818, 0x361d45a6))
+_M32 = 0xFFFFFFFF
+
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & _M32
+
+
+def _sha256_block_plain(st, m):
+    """The SHA-256 compression of every lane: st 8 and m 16 words, each an
+    int64 [B] tensor (or a python int where it is the same in every lane)
+    below 2^32.  Returns the 8 new words."""
+    w = list(m)
+    a, b, c, d, e, f, g, h = st
+    for i in range(64):
+        if i >= 16:
+            w15, w2 = w[i - 15], w[i - 2]
+            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+            w.append((w[i - 16] + s0 + w[i - 7] + s1) & _M32)
+        t1 = h + (_rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)) \
+            + ((e & f) ^ ((e ^ _M32) & g)) + _SHA256_K[i] + w[i]
+        t2 = (_rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)) \
+            + ((a & b) ^ (a & c) ^ (b & c))
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & _M32, c, b, a, \
+            (t1 + t2) & _M32
+    return [(x + y) & _M32 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+
+
+def _hmac_key_plain(k):
+    """The midstates (of K ^ ipad, of K ^ opad) of the 8-word keys k: both
+    compressions in one over twice the lanes."""
+    lanes = k[0].shape[0]
+    pads = [torch.full((lanes,), p, dtype=torch.int64, device=k[0].device)
+            for p in (0x36363636, 0x5C5C5C5C)]
+    pad = torch.cat(pads)
+    both = _sha256_block_plain(
+        _SHA256_IV, [torch.cat([w, w]) ^ pad for w in k] + [pad] * 8)
+    return [w[:lanes] for w in both], [w[lanes:] for w in both]
+
+
+def _hmac_plain(key, v, sep=None, data=()):
+    """HMAC_K(v), or HMAC_K(v || sep || data) with sep one byte and data
+    words, K given by its midstates key = (inner, outer)."""
+    if sep is None:
+        n_bytes, m = 32, list(v) + [0x80000000]
+    else:
+        n_bytes, m, prev = 33 + 4 * len(data), list(v), sep
+        for w in data:
+            m.append(((prev << 24) & _M32) | (w >> 8))
+            prev = w
+        m.append(((prev << 24) & _M32) | 0x00800000)
+    n_words = 16 * ((n_bytes + 9 + 63) // 64)
+    m += [0] * (n_words - 1 - len(m)) + [(64 + n_bytes) * 8]
+    st = key[0]
+    for i in range(0, n_words, 16):
+        st = _sha256_block_plain(st, m[i:i + 16])
+    return _sha256_block_plain(key[1], st + [0x80000000] + [0] * 6
+                               + [(64 + 32) * 8])
+
+
+def _plane_words(plane):
+    """uint8 [32, B] -> 8 int64 [B] big-endian words."""
+    b = plane.to(torch.int64).reshape(8, 4, plane.shape[1])
+    return list(((b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8)
+                 | b[:, 3]).unbind(0))
+
+
+def rfc6979_nonce_plain(d_plane, e_plane, extra_plane=None,
+                        attempt: int = 0):
+    """Candidate `attempt` (0 the first) of each lane's RFC 6979 HMAC-SHA256
+    DRBG (3.2 steps b-h, then h.3 and h.1-2 a further candidate) seeded with
+    key || e || extra, in PyTorch integer ops over lanes: the function of
+    `csrc/drbg.cu` `k_rfc6979`, with the same midstates.  d_plane, e_plane
+    (the digests reduced mod n) and extra_plane (RFC 6979 3.6 additional
+    data, or None): uint8 [32, B].  Returns the candidates, uint8 [32, B]:
+    what `native.rfc6979_nonce_batch` returns, then `attempt` calls of
+    `native.rfc6979_continue`."""
+    data = _plane_words(d_plane) + _plane_words(e_plane)
+    if extra_plane is not None:
+        data += _plane_words(extra_plane)
+    key, v = _ZERO_KEY, [0x01010101] * 8
+    for sep in (0, 1):                      # steps d-e, then f-g
+        key = _hmac_key_plain(_hmac_plain(key, v, sep, data))
+        v = _hmac_plain(key, v)
+    for _ in range(attempt):                # h.2, then h.3
+        v = _hmac_plain(key, v)
+        key = _hmac_key_plain(_hmac_plain(key, v, 0))
+        v = _hmac_plain(key, v)
+    t = torch.stack(_hmac_plain(key, v))    # h.2: the candidate
+    return torch.stack([(t >> s) & 0xFF for s in (24, 16, 8, 0)],
+                       1).reshape(32, d_plane.shape[1]).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -907,3 +1026,30 @@ def point_lookup_add(x, y, z, table, digits):
                              f"{tuple(digits.shape)}")
     return _lanewise(name, "lookup", point_lookup_add_plain, (x, y, z),
                      (table, digits), check)
+
+
+def rfc6979_nonce(d_plane, e_plane, extra_plane=None, attempt: int = 0):
+    """Candidate `attempt` of each lane's RFC 6979 DRBG (see
+    `rfc6979_nonce_plain` for the function), one launch of `k_rfc6979`
+    (`csrc/drbg.cu`, one thread a lane): d_plane, e_plane and extra_plane
+    (or None) uint8 [32, B], attempt >= 0.  Returns uint8 [32, B].
+    Replaces no TPU kernel: the JAX package runs this DRBG on its host."""
+    name = "rfc6979_nonce"
+    planes = [d_plane, e_plane] + ([] if extra_plane is None
+                                   else [extra_plane])
+    on_cpu = _on_cpu(*planes)
+    lanes = d_plane.shape[1] if d_plane.dim() == 2 else -1
+    for t in planes:
+        _check(name, t, 32, lanes, torch.uint8)
+    if attempt < 0:
+        raise ValueError(f"{name}: attempt must be >= 0, got {attempt}")
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return rfc6979_nonce_plain(d_plane, e_plane, extra_plane, attempt)
+    out = torch.empty_like(d_plane)
+    if lanes:
+        _launch(name, "drbg", "rfc6979_nonce",
+                [d_plane, e_plane, planes[-1], out],
+                [lanes, attempt, int(extra_plane is not None)],
+                (lanes, attempt))
+    return out

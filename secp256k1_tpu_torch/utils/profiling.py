@@ -43,6 +43,20 @@ PLANE_BYTES = 16 * 4
 POINT_OPS = {"point_add": (PT_ADD, 9 * PLANE_BYTES),
              "point_double": (PT_DOUBLE, 6 * PLANE_BYTES)}
 
+# RFC 6979's DRBG (csrc/drbg.cu): 32-bit integer operations of one SHA-256
+# compression as the card issues them (a rotation one funnel shift; a
+# three-input XOR, choice or majority one LOP3; two additions one IADD3):
+# 14 a round, 10 a schedule word, 8 to add the state.
+SHA256_BLOCK_OPS = 64 * 14 + 48 * 10 + 8
+
+
+def rfc6979_blocks(extra: bool, attempt: int) -> int:
+    """SHA-256 compressions of one lane of `kernels.rfc6979_nonce`: 16 to
+    seed with key || e and give the first candidate (18 with additional
+    data), 8 for each further candidate."""
+    return (18 if extra else 16) + 8 * attempt
+
+
 TRACE_FILE = "trace.json"
 
 

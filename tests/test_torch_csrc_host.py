@@ -42,6 +42,7 @@ HARNESS = r"""
 #include <vector>
 
 #include "base.cuh"
+#include "drbg.cuh"
 #include "field_f64.cuh"
 #include "glv.cuh"
 #include "modops.cuh"
@@ -248,6 +249,16 @@ extern "C" void base_lanes(const int* digits, const int* words,
     pt_store(ox, oy, oz, lanes, lane, acc);
   }
 }
+
+// k_rfc6979 lane by lane: candidate `attempt` of the DRBG seeded with nd
+// (16 or 24) big-endian words a lane.
+extern "C" void rfc6979_lanes(const u32* seed, int nd, int attempt,
+                              u32* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (nd == 16) rfc6979_lane<16>(seed + 16 * i, attempt, out + 8 * i);
+    else rfc6979_lane<24>(seed + 24 * i, attempt, out + 8 * i);
+  }
+}
 """
 
 FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4, "mulw21": 5}
@@ -259,7 +270,7 @@ def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
     for name in ("field.cuh", "field_f64.cuh", "point.cuh", "msm.cuh",
-                 "glv.cuh", "base.cuh", "modops.cuh"):
+                 "glv.cuh", "base.cuh", "modops.cuh", "drbg.cuh"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -727,3 +738,26 @@ def test_base_window_step_matches_the_plain_versions(host_lib, bits, signed,
                         n_entries, int(signed), int(final))
     for got, w in zip(outs, want):
         assert np.array_equal(got, w.numpy())
+
+
+@pytest.mark.parametrize("extra", [False, True])
+def test_drbg_lanes_match_the_native_drbg(host_lib, extra):
+    """k_rfc6979's lane body (drbg.cuh) at 16 lanes, candidates 0, 1 and
+    2, byte for byte against the native library's DRBG and its
+    continuation, seeded with key || e, or with 32 bytes of additional
+    data after them."""
+    from secp256k1_tpu_torch import native
+    rng = np.random.default_rng(17 + extra)
+    lanes = 16
+    rows = [rng.integers(0, 256, (lanes, 32), dtype=np.uint8)
+            for _ in range(3 if extra else 2)]
+    seed = np.concatenate(rows, 1).view(">u4").astype(np.uint32)
+    want, sv, sk = native.rfc6979_nonce_batch(*rows)
+    for attempt in range(3):
+        if attempt:
+            want = np.stack([native.rfc6979_continue(sv, sk, i)
+                             for i in range(lanes)])
+        out = np.zeros((lanes, 8), np.uint32)
+        host_lib.rfc6979_lanes(_ptr(seed), seed.shape[1], attempt, _ptr(out),
+                               lanes)
+        assert np.array_equal(out.astype(">u4").view(np.uint8), want)

@@ -4,8 +4,8 @@ function, sign, recover, keyed verify and the list APIs.
 - `base_windowed_add_plain` against the python-int oracle `tests/gold.py`
   on edge scalars, and `table.scalar_base_mult` through its wrapper;
 - the RFC 6979 vectors byte-exact through `sign_batch` and
-  `sign_batch_arrays`, and the resample path (a rejected candidate
-  continues the lane's DRBG);
+  `sign_batch_arrays`, and the resample path (a candidate rejected at the
+  nonce wrapper is followed by the lane's next DRBG candidate);
 - sign -> recover round trips, with a crafted recovery id 2/3 lane;
 - keyed-verify statuses, with the JAX package's `PubkeyCache` carried
   across by `convert`, and the off-curve key that the port's cache rejects.
@@ -25,7 +25,7 @@ import gold
 from secp256k1_tpu.models import codecs as jcodecs
 from secp256k1_tpu.models import ecdsa as jecdsa
 from secp256k1_tpu.models.tuplehash import TupleHashXOF128 as JaxTupleHash
-from secp256k1_tpu_torch import convert, native
+from secp256k1_tpu_torch import convert
 from secp256k1_tpu_torch.models import codecs, ecdsa, keys
 from secp256k1_tpu_torch.models.rfc6979 import DrbgRFC6979, RFC6979SHA256
 from secp256k1_tpu_torch.models.tuplehash import TupleHashXOF128
@@ -156,9 +156,10 @@ def test_rfc6979_vectors_sign_batch_arrays(kat):
         assert (r, s, int(v)) == _python_sign(priv.scalar, digest, k)
 
 
-def test_sign_e2e_core_flags_bad_candidates_and_keys():
-    """Candidates 0, n and 2^256 - 1 are flagged for a resample; keys 0 and
-    n are bad keys; the valid lane equals python ints."""
+def test_sign_e2e_core_flags_bad_candidates_and_keys(monkeypatch):
+    """Candidates 0, n and 2^256 - 1, given by the nonce wrapper, are
+    flagged for a resample; keys 0 and n are bad keys; the valid lane
+    equals python ints."""
     d, k = 0xC0FFEE, 0x1234567
     digest = hashlib.sha256(b"e2e core").digest()
     ks = [0, N, 2**256 - 1, k, k, k]
@@ -168,9 +169,17 @@ def test_sign_e2e_core_flags_bad_candidates_and_keys():
         rows = np.stack([np.frombuffer(v.to_bytes(32, "big"), np.uint8)
                          for v in vals])
         return torch.as_tensor(np.ascontiguousarray(rows.T))
-    e_rows = [int.from_bytes(digest, "big")] * len(ks)
+    e_rows = [int.from_bytes(digest, "big") % N] * len(ks)
+    seen = []
+
+    def candidates(d_plane, e_plane, extra_plane, attempt):
+        seen.append((d_plane, e_plane, extra_plane, attempt))
+        return plane(ks)
+    monkeypatch.setattr(K, "rfc6979_nonce", candidates)
     r_b, s_b, recid, resample, bad = ecdsa._sign_e2e_core(
-        plane(ks), plane(e_rows), plane(ds))
+        plane(ds), plane(e_rows), None, 0)
+    assert len(seen) == 1 and seen[0][2] is None and seen[0][3] == 0
+    assert torch.equal(seen[0][0], plane(ds))
     assert resample.tolist() == [True, True, True, False, False, False]
     assert bad.tolist() == [False, False, False, True, True, False]
     r = int.from_bytes(bytes(r_b[:, 5].to(torch.uint8).tolist()), "big")
@@ -183,15 +192,17 @@ def test_sign_batch_arrays_resample_continues_the_drbg(monkeypatch):
     candidate of its own DRBG, as the per-lane rejection loop does."""
     privs = [0xA1, 0xB2, 0xC3]
     digests = [hashlib.sha256(b"resample %d" % i).digest() for i in range(3)]
-    real = native.rfc6979_nonce_batch
+    real = K.rfc6979_nonce
 
-    def first_rejected(keys_arr, digs):
-        first, sv, sk = real(keys_arr, digs)
-        first = first.copy()
-        first[1] = np.frombuffer(N.to_bytes(32, "big"), np.uint8)
-        first[2] = 0
-        return first, sv, sk
-    monkeypatch.setattr(native, "rfc6979_nonce_batch", first_rejected)
+    def first_rejected(d_plane, e_plane, extra_plane, attempt):
+        k = real(d_plane, e_plane, extra_plane, attempt)
+        if attempt == 0:
+            k = k.clone()
+            k[:, 1] = torch.as_tensor(list(N.to_bytes(32, "big")),
+                                      dtype=torch.uint8)
+            k[:, 2] = 0
+        return k
+    monkeypatch.setattr(K, "rfc6979_nonce", first_rejected)
     sigs, recid, status = ecdsa.sign_batch_arrays(
         np.stack([np.frombuffer(d.to_bytes(32, "big"), np.uint8)
                   for d in privs]),

@@ -8,7 +8,9 @@ reference `tests/wallet_sign_ref.py`.
 - 64 seeded lanes, one of them needing 4 attempts or more, ground and not;
 - every output parsed under BIP-0066, low R, low s, at most 71 bytes and
   verified by the port's consensus verify and by the reference;
-- keys not in [1, n), and the call's counters.
+- keys not in [1, n), and the call's counters;
+- the nonces derived by the sign core's DRBG wrapper, never by the native
+  DRBG.
 """
 
 import csv
@@ -22,6 +24,7 @@ import torch
 import wallet_sign_ref as ref
 from secp256k1_tpu_torch import native
 from secp256k1_tpu_torch.models import bitcoin
+from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import errors as ec
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
@@ -143,6 +146,25 @@ def test_ground_lanes_match_the_reference(lanes):
     _assert_equal(lanes["ground"], lanes["want"])
     assert lanes["stats"] == bitcoin.SignStats(max(attempts), sum(attempts),
                                                LANES)
+
+
+def test_nonces_never_leave_the_sign_core(lanes, monkeypatch):
+    """With the native DRBG refusing every call, the signer gives the same
+    bytes: each round derives its nonces through the DRBG wrapper, once a
+    round where no lane is resampled."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the native DRBG was entered")
+    monkeypatch.setattr(native, "rfc6979_nonce_batch", refuse)
+    monkeypatch.setattr(native, "rfc6979_continue", refuse)
+    keys, digests = lanes["keys"][:16], lanes["digests"][:16]
+    K.reset_counts()
+    stats = bitcoin.SignStats()
+    got = bitcoin.sign_der_batch_arrays(_rows(keys), digests, device=CPU,
+                                        stats=stats)
+    _assert_equal(got, lanes["want"][:16])
+    assert stats.rounds > 1
+    assert K.PLAIN_CALLS["rfc6979_nonce"] == stats.rounds
+    assert K.LAUNCHES["rfc6979_nonce"] == 0
 
 
 @pytest.mark.parametrize("sighash", [ref.SIGHASH_ALL, 0x83])

@@ -1,5 +1,7 @@
 """The signing slice against the JAX package's device cores on the same 16
-lanes: `_sign_e2e_core`, `_recover_core`, `_verify_keyed_core`, the three
+lanes: `_sign_e2e_core` (the port's `_sign_from_candidates`, which
+takes the same candidates; its `_sign_e2e_core` derives them first),
+`_recover_core`, `_verify_keyed_core`, the three
 Schnorr sign stages and `_schnorr_verify_e2e_core`, every output (bytes,
 flags, statuses) exact.
 
@@ -76,7 +78,7 @@ def test_sign_e2e_core_matches_jax(lanes):
     (jk, pk), (je, pe), (jd, pd) = _both(_rows(k)), _both(_rows(e)), \
         _both(_rows(d))
     _assert_same(jecdsa._sign_e2e_core(jk, je, jd),
-                 ecdsa._sign_e2e_core(pk, pe, pd))
+                 ecdsa._sign_from_candidates(pk, pe, pd))
 
 
 def test_recover_core_matches_jax(lanes):
@@ -84,7 +86,7 @@ def test_recover_core_matches_jax(lanes):
     _, pk = _both(_rows(k))
     _, pe = _both(_rows(e))
     _, pd = _both(_rows(d))
-    r_b, s_b, recid, _, _ = ecdsa._sign_e2e_core(pk, pe, pd)
+    r_b, s_b, recid, _, _ = ecdsa._sign_from_candidates(pk, pe, pd)
     r_rows = r_b.T.numpy().astype(np.uint8)
     s_rows = s_b.T.numpy().astype(np.uint8)
     recid = recid.numpy().astype(np.int32)
@@ -109,7 +111,7 @@ def test_verify_keyed_core_matches_jax(lanes):
     _, pk = _both(_rows(k))
     _, pe = _both(_rows(e))
     _, pd = _both(_rows(d))
-    r_b, s_b, _, _, _ = ecdsa._sign_e2e_core(pk, pe, pd)
+    r_b, s_b, _, _, _ = ecdsa._sign_from_candidates(pk, pe, pd)
     r_rows = r_b.T.numpy().astype(np.uint8)
     s_rows = s_b.T.numpy().astype(np.uint8)
     s_rows[6] = _rows([N - int.from_bytes(s_rows[6].tobytes(), "big")])[0]
