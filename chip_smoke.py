@@ -21,7 +21,7 @@ the run with a non-zero exit code:
 2. build: compiles the kernels from `ops/cuda/csrc` (one nvcc per source,
    in parallel) and the native host library (g++), and prints the
    seconds, each kernel's registers, stack and spills, each kernel's SASS
-   instructions by kind (IMAD.WIDE beside DFMA and the rest), the IMMA (int8
+   instructions by kind (IMAD.WIDE beside the rest), the IMMA (int8
    tensor-core) instructions in `k_base_scan`'s SASS (`cuobjdump -sass`;
    none fails the run) and the resident blocks an SM of the fixed-base
    kernels, `k_point_add` (fewer than 4 fails) and the chain kernel (more
@@ -35,11 +35,8 @@ the run with a non-zero exit code:
    unsigned GLV #7 and the lane-table GLV #9, whose affine result must
    equal #7's and #4's; #7's and #12's edge lanes also in a second warp,
    lanes 128 on, and #7's and #9's device times at all-zero, all-15 and
-   random digits, a constant-time witness, printed), the two field cores
-   (`csrc/field_probe.cu`: `fe_mul` chains on the integer core, the FP64
-   core, warps split between them and both in one thread, and #12's
-   doublings under each field policy, every mode bit-exact, timed), and
-   the fixed-base kernels at their other shapes
+   random digits, a constant-time witness, printed), and the fixed-base
+   kernels at their other shapes
    (#6 unsigned w = 8, signed w = 6 and 12; #5 at w = 6 and 12); #5 and #6
    at every width with edge lanes, each the same digit in every window
    (the all-zero scalar, magnitude 0 with the sign bit set, magnitude 1,
@@ -172,7 +169,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import ctypes
 import hashlib
 import json
 import os
@@ -347,16 +343,7 @@ PROFILE_ATTEMPTS = 5
 # of its own too (`--profile-sign`).
 PROFILE_PAD_S = 0.1
 TESTDATA = os.path.join(HERE, "tests", "testdata")
-# The two field cores (csrc/field_probe.cu; no path launches these):
-# k_field_probe's four fe_mul chains a lane, FIELD_PROBE_ITERS rounds, and
-# k_dbl4_probe's four doublings, in each mode (the mode's index is its
-# argument).
-FIELD_PROBE_ITERS = 256
-FIELD_PROBE_MODES = ("int", "f64", "split 1/4 f64", "split 2/4 f64",
-                     "split 3/4 f64", "both in one thread")
-DBL4_PROBE_MODES = ("FieldCanon", "FieldLazy", "FieldF64",
-                    "split FieldCanon/FieldF64")
-SPLIT_LANE = 128        # k_dbl4_probe's split: lanes 128-255 of a block f64
+SPLIT_LANE = 128        # edge lanes copied from here on: another warp
 SASS_MIX: dict = {}     # kernel name -> SASS instruction counts by kind
 
 
@@ -520,7 +507,7 @@ def phase_build():
 
 
 def kernel_name(mangled: str) -> str:
-    """k_dbl4_probe<3> from _Z12k_dbl4_probeILi3EEv...; k_point_add from
+    """k_rfc6979<16> from _Z9k_rfc6979ILi16EEv...; k_point_add from
     _Z11k_point_addPKi..."""
     m = re.match(r"_Z(\d+)(\w+)", mangled)
     if not m:
@@ -532,14 +519,14 @@ def kernel_name(mangled: str) -> str:
 
 
 SASS_KINDS = ("IMAD.WIDE", "IMAD", "IADD3", "LOP3", "SHF", "SEL", "PRMT",
-              "DFMA", "DADD", "DMUL", "LDL", "LDL.128", "STL", "STL.128")
+              "LDL", "LDL.128", "STL", "STL.128")
 
 
 def sass_mix(body: str) -> dict:
     """Counts of a kernel's SASS instructions (static, from `cuobjdump
     -sass`) by kind: the multiply-adds that hold a wide product
     (IMAD.WIDE), the other IMADs (moves, adds with carry, IMAD.HI), the
-    integer ALU kinds, the FP64 ones, local loads and stores (16-byte ones
+    integer ALU kinds, local loads and stores (16-byte ones
     apart), and the total."""
     counts = collections.Counter()
     for line in body.splitlines():
@@ -1218,8 +1205,7 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     p1[1][:, 16:20] = p1[2][:, 16:20]
     p1[0][:, 16:20] = 0
     p1[2][:, 16:20] = 0
-    # The same 24 lanes again from SPLIT_LANE on: in the FP64 warps of
-    # k_dbl4_probe's split mode.
+    # The same 24 lanes again from SPLIT_LANE on, in another warp.
     for c in p1:
         c[:, SPLIT_LANE:SPLIT_LANE + 24] = c[:, :24]
     a = [None if 16 <= i < 20 else pts[i % n_pts] for i in range(24)]
@@ -1234,7 +1220,6 @@ def engine_kernel_checks(int_rate, curve, rng, device, res):
     check_points(got, want16, hc, "point_double4")
     check_points([c[:, SPLIT_LANE:] for c in got], want16, hc,
                  f"point_double4 lanes {SPLIT_LANE}+")
-    dbl4_probe_checks(int_rate, got, p1, want16, hc, res)
     got = K.point_add_mixed(*p1, ax, ay)
     check("point_add_mixed", "point_add_mixed", got,
           K.point_add_mixed_plain(*p1, ax, ay),
@@ -1395,96 +1380,6 @@ def nibble_witness(res, name, label, d1, d2, call):
     say(f"kernel {label} constant-time witness (device ms, cold L2): "
         + ", ".join(f"{t} {ms:.4f}" for t, ms in witness.items())
         + f"; spread {spread:.2%}")
-
-
-def probe_fn(name, n_ptr, n_int):
-    """A launcher of csrc/field_probe.cu's `name` on the current stream:
-    call(tensors, ints)."""
-    from secp256k1_tpu_torch.ops.cuda import build
-    fn = getattr(build.library("field_probe"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(ptrs, ints):
-        rc = fn(*[t.data_ptr() for t in ptrs], *ints,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            fail(f"{name}: launch failed with error {rc}")
-    return call
-
-
-def dbl4_probe_checks(int_rate, want, p1, want16, hc, res):
-    """k_point_dbl4's four doublings at 256 threads a block under each
-    field policy of DBL4_PROBE_MODES, X, Y, Z against `point_double4`'s
-    (`want`), the edge lanes 0-23 and from SPLIT_LANE on (the FP64 warps of
-    the split) against python ints, each timed (profiler, cold L2)."""
-    call = probe_fn("dbl4_probe", 6, 2)
-    lanes = p1[0].shape[1]
-    times = {}
-    for mode, label in enumerate(DBL4_PROBE_MODES):
-        outs = [torch.empty_like(c) for c in p1]
-        call(p1 + outs, [mode, lanes])
-        err = max_abs_err(outs, want)
-        if err:
-            fail(f"dbl4 probe {label}: differs from point_double4, max abs "
-                 f"err {err}")
-        check_points(outs, want16, hc, f"dbl4 probe {label}")
-        check_points([c[:, SPLIT_LANE:] for c in outs], want16, hc,
-                     f"dbl4 probe {label} lanes {SPLIT_LANE}+")
-        times[label] = kernel_device_ms(
-            lambda mode=mode, outs=outs: call(p1 + outs, [mode, lanes]), 50,
-            "k_dbl4_probe")[0]
-    base = times[DBL4_PROBE_MODES[0]]
-    say("field cores: k_dbl4_probe (k_point_dbl4's doublings, 256 threads "
-        "a block) device ms, cold L2: " + ", ".join(
-            f"{label} {ms:.4f} ({base / ms:.3f}x FieldCanon)"
-            for label, ms in times.items()))
-    res["point_double4"]["field_cores_ms"] = times
-
-
-def field_core_checks(int_rate, rng, device):
-    """k_field_probe in each of FIELD_PROBE_MODES at LANES lanes: four
-    chains a lane of FIELD_PROBE_ITERS products x = x * y mod p, the edge
-    values in lanes 0-6; every mode's words against the int core's and, on
-    lanes 0-6, against python ints; times by CUDA events in turns (3
-    rounds of every mode forth and back, 5 launches each, the median),
-    beside the products bound (4 * iters * lanes products of 76 wide
-    products at the integer rate).  Returns {mode: ms}."""
-    from secp256k1_tpu_torch.ops import field as fe
-    from secp256k1_tpu_torch.ops import limbs as lb
-    call = probe_fn("field_probe", 3, 3)
-    lanes, iters = LANES, FIELD_PROBE_ITERS
-    a = torch.cat([random_planes(rng, lanes, fe.P, device)
-                   for _ in range(4)]).contiguous()
-    b = random_planes(rng, lanes, fe.P, device).flip(1).contiguous()
-    outs = {m: torch.empty_like(a) for m in range(len(FIELD_PROBE_MODES))}
-    for m, out in outs.items():
-        call([a, b, out], [m, lanes, iters])
-    for m, out in outs.items():
-        if not torch.equal(out, outs[0]):
-            fail(f"field probe {FIELD_PROBE_MODES[m]}: differs from the int "
-                 "core")
-    ys = lb.limbs_to_int_batch(b[:, :7])
-    for c in range(4):
-        xs = lb.limbs_to_int_batch(a[16 * c:16 * c + 16, :7])
-        got = lb.limbs_to_int_batch(outs[1][16 * c:16 * c + 16, :7])
-        if got != [x * pow(y, iters, fe.P) % fe.P for x, y in zip(xs, ys)]:
-            fail(f"field probe f64: chain {c} differs from python ints")
-    times = {m: [] for m in outs}
-    for _ in range(3):
-        for m in list(outs) + list(outs)[::-1]:
-            times[m].append(cuda_ms(
-                lambda m=m: call([a, b, outs[m]], [m, lanes, iters]), 5))
-    med = {FIELD_PROBE_MODES[m]: sorted(t)[len(t) // 2]
-           for m, t in times.items()}
-    b_ms = 4 * iters * lanes * MUL_P / int_rate * 1e3
-    say(f"field cores: k_field_probe, {4 * iters} products a lane at "
-        f"{lanes} lanes, every mode bit-exact (f64 also against python "
-        f"ints), median ms (bound {b_ms:.4f}): " + ", ".join(
-            f"{label} {ms:.4f} ({med['int'] / ms:.3f}x int)"
-            for label, ms in med.items()))
-    return med
 
 
 class MsmPoints:
@@ -3472,8 +3367,6 @@ def main():
     phase("kernels")
     engine_kernel_checks(int_rate, curve, rng, device, res)
     phase("engine kernels")
-    field_cores = field_core_checks(int_rate, rng, device)
-    phase("field cores")
     msm_data = MsmPoints(curve, rng, device)
     msm_kernel_checks(int_rate, msm_data, rng, device, res)
     phase("bucket kernel")
@@ -3565,7 +3458,6 @@ def main():
                         "launches_per_path": per_path, **shapes,
                         **res[name], "library_ms": None,
                         "sass": SASS_MIX.get(KERNEL_SYMBOL[name])})
-    say(f"field cores (k_field_probe ms): {json.dumps(field_cores)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -4,11 +4,12 @@ The port of `secp256k1_tpu.models.ecdsa`.  The host parses signatures with
 the native library (`secp256k1_tpu_torch.native`); decompression,
 hash-to-scalar reduction, batch inversion and the group math run on the
 device, through the CUDA kernels of `ops/cuda` when the device is a GPU.
-`sign_batch_arrays` derives its RFC 6979 nonces on the device too (the
-`rfc6979_nonce` kernel, the sign core's first launch); `sign_batch`'s
-per-lane nonce readers use the native DRBG.  Signing computes k*G with the
-constant-time fixed-base kernel (the nonce is secret); verify and recover
-use the GLV and public-digit fixed-base kernels.
+RFC 6979 nonces are derived on the device too (the `rfc6979_nonce`
+kernel, the sign core's first launch), for `sign_batch_arrays` and for
+`sign_batch` under `RFC6979SHA256`, which signs through it.  Signing
+computes k*G with the constant-time fixed-base kernel (the nonce is
+secret); verify and recover use the GLV and public-digit fixed-base
+kernels.
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; the CPU runs only when the caller passes `device="cpu"`.  A keyed
@@ -266,30 +267,6 @@ def _nonce_reader(rand, priv: keysmod.PrivateKey, e: int):
     xof.write(entropy)
     xof.write(e.to_bytes(32, "big"))
     return xof.read
-
-
-def _nonce_readers_batch(rand, privs, e_ints):
-    """Per-lane nonce readers.  Under `RFC6979SHA256` one native call
-    derives every lane's first candidate and a retry continues that lane's
-    DRBG natively; otherwise each lane reads `_nonce_reader`."""
-    if not isinstance(rand, RFC6979SHA256):
-        return [_nonce_reader(rand, p, e) for p, e in zip(privs, e_ints)]
-    keys_arr = np.stack([np.frombuffer(p.bytes(), np.uint8) for p in privs])
-    e_arr = np.stack([np.frombuffer(e.to_bytes(32, "big"), np.uint8)
-                      for e in e_ints])
-    first, sv, sk = native.rfc6979_nonce_batch(keys_arr, e_arr)
-
-    def make_reader(i):
-        reads = [first[i].tobytes()]
-
-        def read(n):
-            if n != 32:
-                raise ValueError("invalid RFC6979 read length")
-            if reads:
-                return reads.pop()
-            return native.rfc6979_continue(sv, sk, i).tobytes()
-        return read
-    return [make_reader(i) for i in range(len(privs))]
 
 
 def _check_digest(digest: bytes, opts: cfg.ECDSAOptions):
@@ -598,18 +575,38 @@ def sign_batch(privs, digests, rand=None,
     """Sign a batch with one k*G launch for all lanes; returns encoded
     signatures.  privs: [keys.PrivateKey]; digests: [bytes]; rand: None
     (os.urandom entropy), an object with .read(n), or `RFC6979SHA256()` for
-    deterministic signatures."""
+    deterministic signatures, which `sign_batch_arrays` makes (its nonces
+    from the DRBG kernel, the same bytes as RFC 6979's per-lane reads)."""
     device = bt.resolve_device(device)
     opts = opts or cfg.ECDSAOptions()
-    n = len(privs)
-    if len(digests) != n:
+    if len(digests) != len(privs):
         raise ValueError("privs and digests differ in length")
     for d in digests:
         _check_digest(d, opts)
     e_ints = [hash_to_scalar_int(d) for d in digests]
-    readers = _nonce_readers_batch(rand, privs, e_ints)
-    ks = [keysmod.sample_random_scalar(rd) for rd in readers]
+    if isinstance(rand, RFC6979SHA256):
+        sigs, recid, _ = sign_batch_arrays(
+            _rows_of_ints([p.scalar for p in privs]), _rows_of_ints(e_ints),
+            device=device)
+        results = [(int.from_bytes(row[:32].tobytes(), "big"),
+                    int.from_bytes(row[32:].tobytes(), "big"), int(v))
+                   for row, v in zip(sigs, recid)]
+    else:
+        results = _sign_with_readers(rand, privs, e_ints, device)
+    if opts.self_verify:
+        ok = verify_raw_batch([p.public_key for p in privs], digests,
+                              [(r, s) for r, s, _ in results], device=device)
+        if not all(ok):
+            raise RuntimeError("failed to verify new sig")
+    return [_encode_sig(r, s, v, opts.encoding) for r, s, v in results]
 
+
+def _sign_with_readers(rand, privs, e_ints, device):
+    """(r, s, v) a lane, each lane's nonces read from `_nonce_reader`, the
+    lanes whose r or s is 0 signing again at their next read."""
+    n = len(privs)
+    readers = [_nonce_reader(rand, p, e) for p, e in zip(privs, e_ints)]
+    ks = [keysmod.sample_random_scalar(rd) for rd in readers]
     b = bt.bucket(n)
     d_plane = bt.plane([p.scalar for p in privs], b, fill=1, device=device)
     e_plane = bt.plane(e_ints, b, device=device)
@@ -630,12 +627,7 @@ def sign_batch(privs, digests, rand=None,
             break
     if remaining:
         raise RuntimeError("failed rejection sampling for r/s")
-    if opts.self_verify:
-        ok = verify_raw_batch([p.public_key for p in privs], digests,
-                              [(r, s) for r, s, _ in results], device=device)
-        if not all(ok):
-            raise RuntimeError("failed to verify new sig")
-    return [_encode_sig(r, s, v, opts.encoding) for r, s, v in results]
+    return results
 
 
 class PubkeyCache:

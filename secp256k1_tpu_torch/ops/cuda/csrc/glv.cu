@@ -41,10 +41,9 @@
 // selects); at one wave of 16 warps an SM the field core alone issues
 // about 57 % of the schedulers' peak, waiting on the chains.  So fewer
 // instructions, not another pipe, is the lever: a second field core with
-// its products on the FP64 pipe (field_f64.cuh, bit-exact) needs about 380
-// instructions a product and loses, alone (0.59x) and with warps split
-// between the cores (at best 0.90x; csrc/field_probe.cu, timed by
-// chip_smoke.py).
+// its products on the FP64 pipe (bit-exact) needs about 380 instructions a
+// product and loses, alone (0.59x) and with warps split between the cores
+// (at best 0.90x; the FP64 finding in PERF.md section 6).
 //
 // Design: one thread per lane, 128 threads a block, at most 128 registers a
 // thread (__launch_bounds__ with four blocks an SM), so the 65,536 lanes of

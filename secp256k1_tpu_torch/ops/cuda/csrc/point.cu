@@ -25,10 +25,9 @@
 // an SM issue about 57 % of the peak): so it runs its four doublings on
 // FieldLazy (point.cuh: reductions deferred, the result made canonical
 // once at the store), 1,920 instructions a doubling in place of 2,048,
-// 0.0354 -> 0.0334 ms at 65,536 lanes (H100 80GB HBM3, 700 W).  The same
-// doublings with the products on the FP64 pipe (field_f64.cuh), on every
-// warp or on half of each scheduler's, took 0.70x the time of field.cuh's
-// (csrc/field_probe.cu).
+// 0.0354 -> 0.0334 ms at 65,536 lanes (H100 80GB HBM3, 700 W).  On the FP64
+// pipe, on every warp or on half of each scheduler's, the same doublings ran
+// at 0.70x field.cuh's rate (the FP64 finding in PERF.md section 6).
 // Design: one thread per lane, 128 threads a block, no shared memory; any
 // B, the ragged edge masked by the lane bound (no padding to a tile).
 // k_point_add is held to 128 registers (it took 140 unbounded, three

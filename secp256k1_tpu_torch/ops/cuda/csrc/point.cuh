@@ -10,9 +10,8 @@
 // field op here is canonical; the Pallas bodies' lazy reduction changes only
 // non-canonical intermediates.
 //
-// The formulas take their field operations from a policy (FieldCanon,
-// FieldLazy below; FieldF64 in field_f64.cuh): the step order, and so the
-// canonical X, Y, Z at a store, is the same under each.
+// The formulas take their field operations from a policy, FieldCanon or
+// FieldLazy below; each gives the same steps and canonical X, Y, Z.
 //
 // Also the per-lane point tables of the GLV kernels and of point_lookup_add:
 // LocalTable (built in a thread's local memory) and LaneTable (read from

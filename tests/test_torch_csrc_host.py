@@ -2,18 +2,15 @@
 
 `secp256k1_tpu_torch/ops/cuda/csrc/field.cuh` writes every multi-word sum,
 difference and product as PTX carry chains; compiled by a plain C++
-compiler it emulates the same primitives with a carry variable.
-`field_f64.cuh` (products mod p on the FP64 pipe) uses only round-to-nearest
-operations, which the host runs as `std::fma`, `+` and `*` (built with
-`-ffp-contract=off`).  This file builds both, `point.cuh` and the kernels'
-per-thread bodies with g++ into a small library (a harness below, one C
-function a formula over arrays of 8-word values) and holds it against
-python ints (the field operations mod p and mod n, the deferred reductions
-of `FieldLazy`, the FP64 core, the exponentiation chain, the edge values of
-`tests/test_kernel_bodies.py` among them) and against the port's plain
-versions (`ops/cuda/kernels.py`: the same projective X, Y, Z that the
-kernels must give on the card, under each field policy).  Tolerance 0
-throughout.
+compiler it emulates the same primitives with a carry variable.  This
+file builds it, `point.cuh` and the kernels' per-thread bodies with g++
+into a small library (a harness below, one C function a formula over
+arrays of 8-word values) and holds it against python ints (the field
+operations mod p and mod n, the deferred reductions of `FieldLazy`, the
+exponentiation chain, the edge values of `tests/test_kernel_bodies.py`
+among them) and against the port's plain versions (`ops/cuda/kernels.py`:
+the same projective X, Y, Z that the kernels must give on the card, under
+each field policy).  Tolerance 0 throughout.
 
 What this cannot see: the PTX itself (nvcc is not needed here) and the
 kernels' memory layouts; `chip_smoke.py` holds every kernel against its
@@ -43,7 +40,6 @@ HARNESS = r"""
 
 #include "base.cuh"
 #include "drbg.cuh"
-#include "field_f64.cuh"
 #include "glv.cuh"
 #include "modops.cuh"
 #include "msm.cuh"
@@ -79,8 +75,7 @@ extern "C" void field_ops(int op, int mod, const u32* a, const u32* b,
 }
 
 // The mod-p field operations under the point formulas, by policy: 0
-// FieldCanon, 1 FieldLazy, 2 FieldF64 (products on the FP64 core); op as
-// field_ops (0 mul, 1 sqr, 2 add, 3 sub, 5 mulw21) or 6 canon.
+// FieldCanon, 1 FieldLazy; op as field_ops (0 mul, 1 sqr, 2 add, 3 sub, 5 mulw21) or 6 canon.
 template <class F>
 static void policy_op(int op, const u32* x, const u32* y, u32* r) {
   switch (op) {
@@ -100,8 +95,7 @@ extern "C" void policy_ops(int policy, int op, const u32* a, const u32* b,
     const u32* y = b + 8 * i;
     u32* r = out + 8 * i;
     if (policy == 0) policy_op<FieldCanon>(op, x, y, r);
-    else if (policy == 1) policy_op<FieldLazy>(op, x, y, r);
-    else policy_op<FieldF64>(op, x, y, r);
+    else policy_op<FieldLazy>(op, x, y, r);
   }
 }
 
@@ -134,8 +128,7 @@ extern "C" void point_ops(int policy, int op, const u32* a, const u32* b,
   for (int i = 0; i < n; ++i) {
     Pt p = unpack(a + 24 * i), q = unpack(b + 24 * i), r;
     if (policy == 0) point_op<FieldCanon>(op, p, q, r);
-    else if (policy == 1) point_op<FieldLazy>(op, p, q, r);
-    else point_op<FieldF64>(op, p, q, r);
+    else point_op<FieldLazy>(op, p, q, r);
     for (int k = 0; k < 8; ++k) {
       out[24 * i + k] = r.x[k];
       out[24 * i + 8 + k] = r.y[k];
@@ -186,7 +179,7 @@ extern "C" void msm_buckets(const int* digits, const int* px, const int* py,
 
 // The GLV kernels lane by lane: kind 0 k_glv_signed, 1 k_glv_unsigned
 // (p* the points' planes; its loop under FieldLazy, or under policy 0
-// FieldCanon or 2 FieldF64), 2 k_glv_tables (p1x, p2x the lane tables;
+// FieldCanon), 2 k_glv_tables (p1x, p2x the lane tables;
 // its loop under FieldLazy, or under policy 0 FieldCanon).
 extern "C" void glv_lanes(int kind, int policy, const int* d1, const int* d2,
                           const int* p1x, const int* p1y, const int* p1z,
@@ -199,10 +192,6 @@ extern "C" void glv_lanes(int kind, int policy, const int* d1, const int* d2,
                                oz, lanes, n_windows, lane);
     else if (kind == 1 && policy == 0)
       glv_from_points<false, 15, FieldCanon>(d1, d2, p1x, p1y, p1z, p2x, p2y,
-                                          p2z, ox, oy, oz, lanes,
-                                          n_windows, lane);
-    else if (kind == 1 && policy == 2)
-      glv_from_points<false, 15, FieldF64>(d1, d2, p1x, p1y, p1z, p2x, p2y,
                                           p2z, ox, oy, oz, lanes,
                                           n_windows, lane);
     else if (kind == 1)
@@ -269,8 +258,8 @@ POINT_OPS = {"add": 0, "double": 1, "add_mixed": 2}
 def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
-    for name in ("field.cuh", "field_f64.cuh", "point.cuh", "msm.cuh",
-                 "glv.cuh", "base.cuh", "modops.cuh", "drbg.cuh"):
+    for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh", "base.cuh",
+                 "modops.cuh", "drbg.cuh"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -282,8 +271,8 @@ def host_lib():
             fh.write(HARNESS)
         tmp = f"{lib}.tmp{os.getpid()}"
         proc = subprocess.run(
-            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-             "-fPIC", "-Wall", "-I", build.CSRC, "-o", tmp, src],
+            ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wall", "-I",
+             build.CSRC, "-o", tmp, src],
             capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
         os.replace(tmp, lib)
@@ -372,18 +361,17 @@ def test_reduction_of_any_512_bit_value(host_lib):
         assert _ints(out) == [v % m for v in vals]
 
 
-POLICIES = {"canon": 0, "lazy": 1, "f64": 2}
-POLICY_CASES = [("f64", "mul"), ("f64", "sqr")] + [
-    ("lazy", op) for op in ("mul", "sqr", "add", "sub", "mulw21", "canon")]
+POLICIES = {"canon": 0, "lazy": 1}
+POLICY_CASES = [("lazy", op) for op in ("mul", "sqr", "add", "sub", "mulw21",
+                                        "canon")]
 
 
 @pytest.mark.parametrize("policy,op", POLICY_CASES,
                          ids=[f"{c}-{o}" for c, o in POLICY_CASES])
 def test_field_cores_match_python_ints(host_lib, policy, op):
-    """The point formulas' other field operations mod p: the FP64 core's
-    products (field_f64.cuh, canonical, also word for word against
-    field.cuh's) and the deferred reductions of FieldLazy (below 2^256 and
-    congruent; `canon` canonical).  Operands: every pair of the edge values
+    """The point formulas' other field operations mod p: the deferred
+    reductions of FieldLazy (below 2^256 and congruent; `canon`
+    canonical).  Operands: every pair of the edge values
     of tests/test_kernel_bodies.py and of values in [p, 2^256) (each
     operand near 2^256 takes the second fold), then random 256-bit pairs."""
     rng = np.random.default_rng(10 + 7 * POLICIES[policy] + len(op))
@@ -403,11 +391,6 @@ def test_field_cores_match_python_ints(host_lib, policy, op):
         return
     assert [v % P for v in got] == [_field_want(op, P, x, y)
                                     for x, y in zip(a, b)]
-    if policy == "f64":
-        assert got == [_field_want(op, P, x, y) for x, y in zip(a, b)]
-        ref = np.zeros_like(aw)
-        host_lib.field_ops(code, 0, _ptr(aw), _ptr(bw), _ptr(ref), len(a))
-        assert np.array_equal(out, ref)
 
 
 def _point_operands(rng, lanes=48):
@@ -633,9 +616,9 @@ def test_glv_lanes_match_the_plain_versions(host_lib, kind):
     _check_glv_lanes(host_lib, kind, POLICIES["lazy"])
 
 
-@pytest.mark.parametrize("policy", ["canon", "f64"])
+@pytest.mark.parametrize("policy", ["canon"])
 def test_unsigned_glv_lane_on_each_field_core(host_lib, policy):
-    """k_glv_unsigned's lane body under the other field policies than the
+    """k_glv_unsigned's lane body under the other field policy than the
     kernel's own: the same X, Y, Z."""
     _check_glv_lanes(host_lib, "unsigned", POLICIES[policy])
 

@@ -243,8 +243,8 @@ def test_engine_wrappers_take_the_plain_version_only_on_the_cpu():
 
 
 def test_build_is_keyed_by_the_sources():
-    assert build.sources() == ["base", "drbg", "field_probe", "glv",
-                               "lookup", "modops", "msm", "point"]
+    assert build.sources() == ["base", "drbg", "glv", "lookup", "modops",
+                               "msm", "point"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.build_dir().startswith(

@@ -4,7 +4,9 @@ function, sign, recover, keyed verify and the list APIs.
 - `base_windowed_add_plain` against the python-int oracle `tests/gold.py`
   on edge scalars, and `table.scalar_base_mult` through its wrapper;
 - the RFC 6979 vectors byte-exact through `sign_batch` and
-  `sign_batch_arrays`, and the resample path (a candidate rejected at the
+  `sign_batch_arrays`, `sign_batch` under `RFC6979SHA256` equal to
+  `sign_batch_arrays` under every encoding and never entering the native
+  DRBG, and the resample path through both (a candidate rejected at the
   nonce wrapper is followed by the lane's next DRBG candidate);
 - sign -> recover round trips, with a crafted recovery id 2/3 lane;
 - keyed-verify statuses, with the JAX package's `PubkeyCache` carried
@@ -25,7 +27,7 @@ import gold
 from secp256k1_tpu.models import codecs as jcodecs
 from secp256k1_tpu.models import ecdsa as jecdsa
 from secp256k1_tpu.models.tuplehash import TupleHashXOF128 as JaxTupleHash
-from secp256k1_tpu_torch import convert
+from secp256k1_tpu_torch import convert, native
 from secp256k1_tpu_torch.models import codecs, ecdsa, keys
 from secp256k1_tpu_torch.models.rfc6979 import DrbgRFC6979, RFC6979SHA256
 from secp256k1_tpu_torch.models.tuplehash import TupleHashXOF128
@@ -187,9 +189,87 @@ def test_sign_e2e_core_flags_bad_candidates_and_keys(monkeypatch):
     assert (r, s, int(recid[5])) == _python_sign(d, digest, k)
 
 
-def test_sign_batch_arrays_resample_continues_the_drbg(monkeypatch):
+@pytest.fixture(scope="module")
+def rfc_lanes(kat):
+    """The 20 RFC 6979 vectors and 12 random keys and digests, with
+    `sign_batch_arrays`' rows and recovery ids for them."""
+    rng = np.random.default_rng(1806)
+    privs = kat["privs"] + [
+        keys.PrivateKey(int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1)
+        for _ in range(12)]
+    digests = kat["digests"] + [hashlib.sha256(b"lane %d" % i).digest()
+                                for i in range(12)]
+    sigs, recid, status = ecdsa.sign_batch_arrays(
+        np.stack([np.frombuffer(p.bytes(), np.uint8) for p in privs]),
+        np.stack([np.frombuffer(d, np.uint8) for d in digests]), device=CPU)
+    assert status.tolist() == [ec.OK] * len(privs)
+    return privs, digests, sigs, recid
+
+
+@pytest.mark.parametrize("encoding", list(cfg.SignatureEncoding),
+                         ids=lambda e: e.name)
+def test_sign_batch_rfc6979_equals_sign_batch_arrays(rfc_lanes, encoding):
+    """`sign_batch` under `RFC6979SHA256` gives `sign_batch_arrays`' (r, s,
+    v) in the encoding asked for, byte for byte, which are the python-int
+    signer's with the nonce of RFC 6979's first read."""
+    privs, digests, sigs, recid = rfc_lanes
+    got = ecdsa.sign_batch(privs, digests, rand=RFC6979SHA256(),
+                           opts=cfg.ECDSAOptions(encoding=encoding),
+                           device=CPU)
+    build = {cfg.SignatureEncoding.ASN1: codecs.build_asn1_signature,
+             cfg.SignatureEncoding.COMPACT: codecs.build_compact_signature,
+             cfg.SignatureEncoding.COMPACT_RECOVERABLE:
+                 codecs.build_compact_recoverable_signature}[encoding]
+    for sig, row, v, priv, digest in zip(got, sigs, recid, privs, digests):
+        r, s = _ints(row)
+        want = (r, s, int(v)) if encoding.name.endswith("RECOVERABLE") \
+            else (r, s)
+        assert sig == build(*want)
+        k = _rfc6979_k(priv.scalar, digest)
+        assert (r, s, int(v)) == _python_sign(priv.scalar, digest, k)
+
+
+def test_sign_batch_rfc6979_never_enters_the_native_drbg(monkeypatch, kat):
+    """Under `RFC6979SHA256` every nonce comes from the DRBG kernel's
+    wrapper: the native DRBG refuses every call and the signatures are
+    still the vectors'."""
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the native DRBG was entered")
+    monkeypatch.setattr(native, "rfc6979_nonce_batch", refuse)
+    monkeypatch.setattr(native, "rfc6979_continue", refuse)
+    K.reset_counts()
+    sigs = ecdsa.sign_batch(kat["privs"], kat["digests"],
+                            rand=RFC6979SHA256(), device=CPU)
+    assert K.PLAIN_CALLS["rfc6979_nonce"] > 0
+    assert [s.hex().upper() for s in sigs] == [r[2] for r in kat["rows"]]
+
+
+def test_sign_batch_rfc6979_reads_the_leftmost_32_bytes():
+    """A 64-byte (sha512) digest signs as the python-int signer on its
+    leftmost 32 bytes; a digest under 32 bytes raises before any nonce."""
+    priv = keys.PrivateKey(0xD1CE)
+    digest = hashlib.sha512(b"wide digest").digest()
+    opts = cfg.ECDSAOptions(
+        hash="sha512", encoding=cfg.SignatureEncoding.COMPACT_RECOVERABLE)
+    sig, = ecdsa.sign_batch([priv], [digest], rand=RFC6979SHA256(),
+                            opts=opts, device=CPU)
+    k = _rfc6979_k(priv.scalar, digest)
+    assert codecs.parse_compact_recoverable_signature(sig) == \
+        _python_sign(priv.scalar, digest[:32], k)
+    K.reset_counts()
+    for hash_name in ("sha256", "unsized"):
+        with pytest.raises(ValueError):
+            ecdsa.sign_batch([priv], [digest[:31]], rand=RFC6979SHA256(),
+                             opts=cfg.ECDSAOptions(hash=hash_name),
+                             device=CPU)
+    assert K.PLAIN_CALLS["rfc6979_nonce"] == 0
+
+
+@pytest.mark.parametrize("entry", ["arrays", "list"])
+def test_sign_batch_arrays_resample_continues_the_drbg(monkeypatch, entry):
     """A lane whose first candidate is rejected (n, 0) signs with the next
-    candidate of its own DRBG, as the per-lane rejection loop does."""
+    candidate of its own DRBG, as the per-lane rejection loop does; through
+    `sign_batch_arrays` and through `sign_batch` under `RFC6979SHA256`."""
     privs = [0xA1, 0xB2, 0xC3]
     digests = [hashlib.sha256(b"resample %d" % i).digest() for i in range(3)]
     real = K.rfc6979_nonce
@@ -203,14 +283,24 @@ def test_sign_batch_arrays_resample_continues_the_drbg(monkeypatch):
             k[:, 2] = 0
         return k
     monkeypatch.setattr(K, "rfc6979_nonce", first_rejected)
-    sigs, recid, status = ecdsa.sign_batch_arrays(
-        np.stack([np.frombuffer(d.to_bytes(32, "big"), np.uint8)
-                  for d in privs]),
-        np.stack([np.frombuffer(d, np.uint8) for d in digests]), device=CPU)
-    assert status.tolist() == [ec.OK] * 3
+    if entry == "arrays":
+        sigs, recid, status = ecdsa.sign_batch_arrays(
+            np.stack([np.frombuffer(d.to_bytes(32, "big"), np.uint8)
+                      for d in privs]),
+            np.stack([np.frombuffer(d, np.uint8) for d in digests]),
+            device=CPU)
+        assert status.tolist() == [ec.OK] * 3
+        got = [(*_ints(sig), int(v)) for sig, v in zip(sigs, recid)]
+    else:
+        opts = cfg.ECDSAOptions(
+            encoding=cfg.SignatureEncoding.COMPACT_RECOVERABLE)
+        got = [codecs.parse_compact_recoverable_signature(sig)
+               for sig in ecdsa.sign_batch(
+                   [keys.PrivateKey(d) for d in privs], digests,
+                   rand=RFC6979SHA256(), opts=opts, device=CPU)]
     for i, (d, digest) in enumerate(zip(privs, digests)):
         k = _rfc6979_k(d, digest, reads=1 if i == 0 else 2)
-        assert (*_ints(sigs[i]), int(recid[i])) == _python_sign(d, digest, k)
+        assert got[i] == _python_sign(d, digest, k)
 
 
 def test_sign_batch_arrays_bad_keys():
