@@ -78,6 +78,7 @@ the run with a non-zero exit code:
    - the wallet signer: `bitcoin.sign_der_batch_arrays` on the same lanes
      with the native DRBG refusing every call, one DRBG launch a round,
      the vectors' lanes and 64 others against `tests/wallet_sign_ref.py`;
+     a second call replays one sign core graph a round (`SIGN_GRAPHS`);
    - recover: `recover_batch` gives back every lane's signer;
    - keyed verify: `verify_batch_arrays_keyed` with corrupted lanes, every
      status against the expected one;
@@ -119,7 +120,9 @@ the run with a non-zero exit code:
    operands it was given;
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
    DER parse); sign/s end to end and of `_sign_e2e_core` (its DRBG kernel
-   included), beside the native host DRBG's time; recover/s; keyed
+   included), beside the native host DRBG's time; the sign core's graph
+   against its eager body at every width from 16 to 65,536 lanes, with and
+   without extra data: equal outputs, ms of each; recover/s; keyed
    verify/s; Schnorr sign/s and verify/s; MSM points/s at 2^16, 2^20 and
    2^22 points and the bucket kernel's share of the 2^20 call; ECDH/s end
    to end and of `_ecdh_e2e_core` under each GLV engine; the verify and
@@ -1601,9 +1604,10 @@ def as_tuple(out):
 
 @contextlib.contextmanager
 def recording(names):
-    """While open, every call of the kernel wrappers `names` keeps a copy
-    of its arguments and results:
-    {name: [(args, kwargs, results), ...]}."""
+    """While open, every call of the kernel wrappers `names` that runs
+    keeps a copy of its arguments and results:
+    {name: [(args, kwargs, results), ...]}.  A call made while a CUDA graph
+    is being captured runs nothing and keeps nothing."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     calls = {name: [] for name in names}
     wrappers = {name: getattr(K, name) for name in names}
@@ -1623,6 +1627,8 @@ def recording(names):
     def keep(name):
         def call(*args, **kwargs):
             out = wrappers[name](*args, **kwargs)
+            if torch.cuda.is_current_stream_capturing():
+                return out
             calls[name].append(([copy(a) for a in args], kwargs,
                                 [o.clone() for o in as_tuple(out)]))
             return out
@@ -1890,9 +1896,12 @@ def wallet_sign_path(signers, rng):
     grinding) on the signers' LANES lanes with the native DRBG refusing
     every call: one DRBG launch a round (no lane resampled), every status
     OK; the RFC 6979 vectors' lanes and WALLET_SAMPLED_LANES others against
-    the python-int reference signer `tests/wallet_sign_ref.py`."""
+    the python-int reference signer `tests/wallet_sign_ref.py`.  A second
+    call on the same lanes, its every width's sign core graph captured by
+    the first, replays one graph a round and captures and runs eagerly
+    none, with the same rows."""
     from secp256k1_tpu_torch import native
-    from secp256k1_tpu_torch.models import bitcoin
+    from secp256k1_tpu_torch.models import bitcoin, ecdsa
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import wallet_sign_ref as ref
 
@@ -1924,7 +1933,23 @@ def wallet_sign_path(signers, rng):
     say(f"path wallet sign: {stats.rounds} rounds, {stats.seedings} DRBG "
         f"seedings, {launches} rfc6979_nonce launches (one a round), the "
         f"native DRBG never entered; {len(picks)} lanes equal the python-int"
-        f" reference signer")
+        f" reference signer; SIGN_GRAPHS {ecdsa.SIGN_GRAPHS}")
+    before = dict(ecdsa.SIGN_GRAPHS)
+    warm = bitcoin.SignStats()
+    t0 = time.perf_counter()
+    der2, lens2, _ = bitcoin.sign_der_batch_arrays(
+        signers.priv, signers.digests, stats=warm)
+    wall = time.perf_counter() - t0
+    graphs = {k: n - before[k] for k, n in ecdsa.SIGN_GRAPHS.items()}
+    if graphs != {"captured": 0, "replayed": warm.rounds, "eager": 0}:
+        fail(f"wallet sign: a warmed call of {warm.rounds} rounds moved "
+             f"SIGN_GRAPHS by {graphs}")
+    if not np.array_equal(der2, der) or not np.array_equal(lens2, lens):
+        fail("wallet sign: the warmed call's rows differ from the first's")
+    say(f"path wallet sign: a warmed second call, {wall * 1e3:.1f} ms, "
+        f"replayed {graphs['replayed']} sign core graphs over {warm.rounds} "
+        f"rounds (captured 0, eager 0), the same rows; SIGN_GRAPHS "
+        f"{ecdsa.SIGN_GRAPHS}")
 
 
 def schnorr_path(curve, signers, rng):
@@ -2311,6 +2336,47 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
         f"= {rate(sver[0]):.1f} verify/s, its host tagged hash alone "
         f"{hver[0]:.1f} ms")
     return planes
+
+
+SIGN_GRAPH_WIDTHS = tuple(1 << k for k in range(4, 17))
+
+
+def sign_graph_checks(signers, rng, device):
+    """The sign core at every bucket width from 16 to LANES lanes (the
+    signers' first lanes), with and without extra data: the graph's answer
+    (a replay) equals the eager body's on the same planes, and the device
+    milliseconds of `_sign_e2e_core` (the graph) and of `_sign_e2e_body`
+    (eager), each by CUDA events around one call, median of 7."""
+    from secp256k1_tpu_torch.models import ecdsa
+    from secp256k1_tpu_torch.utils import batching as bt
+    e_rows = ecdsa._reduce_digest_np(signers.digests)
+    extra_rows = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    for extra in (False, True):
+        for width in SIGN_GRAPH_WIDTHS:
+            planes = [bt.byte_plane_np(a[:width], width, device)
+                      for a in (signers.priv, e_rows)]
+            planes += [bt.byte_plane_np(extra_rows[:width], width, device)
+                       if extra else None, 0]
+            want = ecdsa._sign_e2e_body(*planes)
+            ecdsa._sign_e2e_core(*planes)
+            before = ecdsa.SIGN_GRAPHS["replayed"]
+            got = ecdsa._sign_e2e_core(*planes)
+            if ecdsa.SIGN_GRAPHS["replayed"] != before + 1:
+                fail(f"sign graph: {width} lanes, extra {extra}: no replay")
+            for i, (g, w) in enumerate(zip(got, want)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    fail(f"sign graph: {width} lanes, extra {extra}: output "
+                         f"{i} differs from the eager body's")
+            graph = median_cuda_ms(lambda: ecdsa._sign_e2e_core(*planes))
+            eager = median_cuda_ms(lambda: ecdsa._sign_e2e_body(*planes))
+            say(f"sign graph: {width:6d} lanes, extra {int(extra)}: the "
+                f"replay equals the eager body; _sign_e2e_core (graph) "
+                f"{graph[0]:.3f} ms (range {graph[1]:.3f}-{graph[2]:.3f}), "
+                f"_sign_e2e_body (eager) {eager[0]:.3f} ms (range "
+                f"{eager[1]:.3f}-{eager[2]:.3f}): {eager[0] / graph[0]:.2f}x")
+    say(f"sign graph: SIGN_GRAPHS {ecdsa.SIGN_GRAPHS}, device memory "
+        f"allocated {torch.cuda.memory_allocated(device)} B, reserved "
+        f"{torch.cuda.memory_reserved(device)} B")
 
 
 def profile_core(label, fn, expect):
@@ -3226,6 +3292,13 @@ def profile_sign():
     profile_core(f"_sign_e2e_core at {LANES} lanes (a process of its own)",
                  lambda: ecdsa._sign_e2e_core(*planes),
                  [KERNEL_SYMBOL[name] for name in ECDSA_SIGN_KERNELS])
+    graphs = ecdsa.SIGN_GRAPHS
+    if graphs["captured"] != 1 or graphs["replayed"] < 1 or graphs["eager"]:
+        fail(f"profile: the profiled sign core was no graph replay: "
+             f"SIGN_GRAPHS {graphs}")
+    say(f"profile: the profiled sign core was a graph replay (SIGN_GRAPHS "
+        f"{graphs}), and every kernel of {list(ECDSA_SIGN_KERNELS)} appears "
+        f"in it")
 
 
 def profile_msm():
@@ -3401,6 +3474,7 @@ def main():
     phase("hash-to-curve, consensus and service paths")
     verify_ms = throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
+    sign_graph_checks(signers, np.random.default_rng(DRBG_SEED + 1), device)
     msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
     ecdh_planes = engine_throughput(ecdh_batch, triples, sign_planes, device)
     h2c_planes = slice_throughput(h2c_batch, consensus, arrays, device)
