@@ -1,11 +1,13 @@
 """Bitcoin consensus validation (BIP-0066 strict DER and consensus ECDSA
-verify) and Bitcoin Core's wallet signer.
+verify, BIP-0341 Taproot Schnorr verify) and Bitcoin Core's wallet signer.
 
 The port of `secp256k1_tpu.models.bitcoin`: the same BIP-0066 checks in
 the same order (a signature carries its trailing sighash byte), then ECDSA
 verify with SHA-256 digests, ASN.1 signatures and low s enforced.  Beside
-it, `sign_der_batch_arrays` signs as Bitcoin Core's `CKey::Sign` does
-(RFC 6979 nonces, low-R grinding, low s, strict DER and the sighash byte).
+it, `verify_taproot_batch_arrays` checks Taproot signatures as Bitcoin
+Core's `CheckSchnorrSignature` does, and `sign_der_batch_arrays` signs as
+Bitcoin Core's `CKey::Sign` does (RFC 6979 nonces, low-R grinding, low s,
+strict DER and the sighash byte).
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; `device="cpu"` runs the plain path.
 """
@@ -20,7 +22,9 @@ from .. import native
 from ..utils import batching as bt
 from ..utils import config as cfg
 from ..utils import errors as ec
+from ..utils import hostcurve as hc
 from . import ecdsa as ecdsamod
+from . import schnorr as schnorrmod
 
 _TAG_SEQUENCE_COMPOUND = 0x30
 _TAG_INTEGER = 0x02
@@ -137,6 +141,76 @@ def verify_asn1_batch(pubs, digests, sigs, device=None) -> list:
     dev_ok = ecdsamod.verify_batch(pubs, digests, stripped,
                                    opts=_OPTS_CONSENSUS, device=device)
     return [a and b for a, b in zip(enc_ok, dev_ok)]
+
+
+# ---------------------------------------------------------------------------
+# Taproot (BIP-0341, BIP-0342) signature checks.
+# ---------------------------------------------------------------------------
+
+# The hash types a 65-byte signature may name: SIGHASH_DEFAULT (0x00) is
+# implied by a 64-byte one and may not be explicit.
+_TAPROOT_HASH_TYPES = (0x01, 0x02, 0x03, 0x81, 0x82, 0x83)
+# What a lane rejected on the host sends to the device: the key x(G) and
+# the signature (x(G), 1), in range and liftable.
+_INERT_X = np.frombuffer(hc.GX.to_bytes(32, "big"), np.uint8)
+_INERT_SIG = np.concatenate([_INERT_X, np.frombuffer(
+    (1).to_bytes(32, "big"), np.uint8)])
+
+
+def _taproot_host_parse(pub_x: np.ndarray, sigs: np.ndarray,
+                        lens: np.ndarray):
+    """Core's size and hash-type rules over the rows, ahead of BIP-0340
+    verify: a length other than 64 or 65 is ERR_INVALID_ENCODING (Core's
+    SCHNORR_SIG_SIZE); a 65-byte row whose last byte is not in
+    `_TAPROOT_HASH_TYPES` is ERR_SCHNORR_SIG_HASHTYPE.  Returns (status [n]
+    int32, OK where the lane goes on to verify; keys [n, 32]; signatures
+    [n, 64]), the rejected lanes' keys and signatures made inert."""
+    lens = np.asarray(lens)
+    size_ok = (lens == 64) | (lens == 65)
+    type_ok = (lens != 65) | np.isin(sigs[:, 64], _TAPROOT_HASH_TYPES)
+    status = np.where(size_ok, np.where(type_ok, ec.OK,
+                                        ec.ERR_SCHNORR_SIG_HASHTYPE),
+                      ec.ERR_INVALID_ENCODING).astype(np.int32)
+    keys = np.array(pub_x, np.uint8)
+    sig64 = np.array(sigs[:, :64], np.uint8)
+    rejected = status != ec.OK
+    keys[rejected] = _INERT_X
+    sig64[rejected] = _INERT_SIG
+    return status, keys, sig64
+
+
+def verify_taproot_batch_arrays(pub_x: np.ndarray, digests: np.ndarray,
+                                sigs: np.ndarray, lens: np.ndarray,
+                                device=None) -> np.ndarray:
+    """Batched Taproot signature checks as Bitcoin Core's
+    `GenericTransactionSignatureChecker::CheckSchnorrSignature` makes them
+    (BIP-0341 key-path spends, BIP-0342 tapscript signatures).
+
+    pub_x: [n, 32] u8 x-only output keys; digests: [n, 32] u8 TapSighash
+    digests; sigs: [n, W] u8 signatures zero-padded, W >= 65; lens: [n]
+    their lengths.  Returns [n] int32 statuses in Core's precedence:
+    ERR_INVALID_ENCODING for a length other than 64 or 65 (a longer
+    signature needs only its length here), ERR_SCHNORR_SIG_HASHTYPE for
+    an explicit hash type of 0x00 or outside 0x01-0x03 and 0x81-0x83, else
+    ERR_VERIFY_FAILED where BIP-0340 verify of the first 64 bytes fails
+    (a key x >= p or off the curve, r >= p, s >= n, R at infinity, odd
+    y(R) or x(R) != r), else OK.  The host applies the rules
+    (`_taproot_host_parse`) and hashes every lane's challenge in one call;
+    the device verifies (`schnorr._verify_status_arrays`)."""
+    device = bt.resolve_device(device)
+    n = pub_x.shape[0]
+    if pub_x.shape != (n, 32) or digests.shape != (n, 32) \
+            or sigs.ndim != 2 or sigs.shape[0] != n or sigs.shape[1] < 65 \
+            or np.shape(lens) != (n,):
+        raise ValueError(f"expected [n, 32] keys and digests, [n, >= 65] "
+                         f"sigs and [n] lens, got {pub_x.shape}, "
+                         f"{digests.shape}, {sigs.shape}, {np.shape(lens)}")
+    status, keys, sig64 = _taproot_host_parse(pub_x, sigs, lens)
+    core = schnorrmod._verify_status_arrays(keys, digests, sig64, None,
+                                            device)
+    return np.where(status != ec.OK, status,
+                    np.where(core == ec.OK, ec.OK, ec.ERR_VERIFY_FAILED)
+                    ).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

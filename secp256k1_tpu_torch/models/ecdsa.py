@@ -36,6 +36,7 @@ from ..ops.cuda import kernels as K
 from ..utils import batching as bt
 from ..utils import config as cfg
 from ..utils import errors as ec
+from ..utils import graphs
 from ..utils import hostcurve as hc
 from . import codecs
 from . import keys as keysmod
@@ -50,8 +51,9 @@ MAX_SCALAR_RESAMPLES = 8
 
 
 def _status_where(cond, code, other):
-    return torch.where(cond, torch.as_tensor(code, dtype=torch.int32,
-                                             device=other.device), other)
+    """`code` where cond, else other (an int32 plane); the code is a
+    scalar of the launch, not a tensor copied from the host."""
+    return torch.where(cond, code, other)
 
 
 def _verify_impl(qx, qy, e, r, s):
@@ -164,29 +166,17 @@ def _sign_core(k, e, d):
 
 
 def _sign_e2e_core(d_bytes, e_bytes, extra_bytes, attempt: int):
-    """Sign from byte planes: `_sign_e2e_body`, through a CUDA graph where
-    `_sign_graph_key` gives the planes one.  Such a key's first call runs
-    the body eagerly on a side stream (which fills every constant cache
-    the body reads) and answers from it, then captures the body over
-    static planes; every later call copies its planes in, replays the
-    graph on the current stream and returns copies of its outputs.  Other
-    planes (the CPU, a resample pass) run the body eagerly.  Returns (r
-    bytes, s bytes, recovery id, resample, bad_key) planes."""
+    """Sign from byte planes: `_sign_e2e_body`, through a CUDA graph
+    (`graphs.Cache.run`) where `_sign_graph_key` gives the planes one;
+    other planes (the CPU, a resample pass) run the body eagerly.  Returns
+    (r bytes, s bytes, recovery id, resample, bad_key) planes."""
     key = _sign_graph_key(d_bytes, e_bytes, extra_bytes, attempt)
     if key is None:
         if d_bytes.device.type == "cuda":
             SIGN_GRAPHS["eager"] += 1
         return _sign_e2e_body(d_bytes, e_bytes, extra_bytes, attempt)
-    planes = (d_bytes, e_bytes, extra_bytes)
-    with torch.cuda.device(key[0]):
-        graph = _SIGN_GRAPH_OF.get(key)
-        if graph is not None:
-            SIGN_GRAPHS["replayed"] += 1
-            return graph.replay(planes)
-        out = _side_stream_body(planes)
-        _SIGN_GRAPH_OF[key] = _SignGraph(planes)
-        SIGN_GRAPHS["captured"] += 1
-        return out
+    return _SIGN_CACHE.run(key, _sign_first_candidate,
+                           (d_bytes, e_bytes, extra_bytes))
 
 
 def _sign_e2e_body(d_bytes, e_bytes, extra_bytes, attempt: int):
@@ -199,84 +189,31 @@ def _sign_e2e_body(d_bytes, e_bytes, extra_bytes, attempt: int):
     return _sign_from_candidates(k_bytes, e_bytes, d_bytes)
 
 
-# How the sign core's rounds on the GPU ran: "captured" rounds captured a
-# graph (answered by the eager run before the capture), "replayed" rounds
-# replayed one, "eager" rounds ran `_sign_e2e_body` with no graph.
-SIGN_GRAPHS = {"captured": 0, "replayed": 0, "eager": 0}
-_SIGN_GRAPH_OF: dict = {}          # `_sign_graph_key` -> `_SignGraph`
+def _sign_first_candidate(d_bytes, e_bytes, extra_bytes):
+    return _sign_e2e_body(d_bytes, e_bytes, extra_bytes, 0)
+
+
+# How the sign core's rounds on the GPU ran (`graphs.Cache.counts`).
+_SIGN_CACHE = graphs.Cache()
+SIGN_GRAPHS = _SIGN_CACHE.counts
+_SIGN_GRAPH_OF = _SIGN_CACHE.graphs  # `_sign_graph_key` -> `graphs.Captured`
 
 
 def _sign_graph_key(d_bytes, e_bytes, extra_bytes, attempt: int):
     """The key of the CUDA graph that signs these planes, or None where
     the body runs eagerly: planes off the GPU, a resample pass (attempt >
     0), or planes that are not all contiguous uint8 [32, B] on one device
-    (the eager wrappers raise for those).  The key holds what the body's
-    launches depend on: the device, the width B, whether there is extra
-    data, and the fixed-base switches in force
-    (`table.base_signed_enabled`, `table.base_window`)."""
-    if attempt != 0 or d_bytes.device.type != "cuda":
+    (`graphs.plane_width`).  The key holds what the body's launches depend
+    on: the device, the width B, whether there is extra data, and the
+    fixed-base switches in force (`table.base_signed_enabled`,
+    `table.base_window`)."""
+    if attempt != 0:
         return None
-    width = d_bytes.shape[-1]
-    for t in (d_bytes, e_bytes, extra_bytes):
-        if t is not None and (t.device != d_bytes.device
-                              or t.dtype != torch.uint8
-                              or tuple(t.shape) != (32, width)
-                              or not t.is_contiguous()):
-            return None
+    width = graphs.plane_width((d_bytes, e_bytes, extra_bytes))
+    if width is None:
+        return None
     return (d_bytes.device, width, extra_bytes is not None,
             tbl.base_signed_enabled(), tbl.base_window())
-
-
-def _side_stream_body(planes):
-    """`_sign_e2e_body` at attempt 0 on a side stream, ordered after the
-    current stream's work and before its later work."""
-    current = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        out = _sign_e2e_body(*planes, 0)
-    current.wait_stream(side)
-    for t in out:
-        t.record_stream(current)
-    return out
-
-
-class _SignGraph:
-    """`_sign_e2e_body` at attempt 0 captured over static copies of
-    `planes` (a None plane stays None), with the kernel launches and
-    launch shapes that one replay runs: the capture's own counts are
-    taken back out of `K.LAUNCHES` and `K.SHAPES`, since it runs
-    nothing, and each replay adds them."""
-
-    def __init__(self, planes):
-        self.planes = [None if t is None else torch.empty_like(t)
-                       for t in planes]
-        launches, shapes = dict(K.LAUNCHES), dict(K.SHAPES)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.out = _sign_e2e_body(*self.planes, 0)
-            self.launches = {k: n - launches[k]
-                             for k, n in K.LAUNCHES.items()
-                             if n != launches[k]}
-            self.shapes = {k: n - shapes.get(k, 0)
-                           for k, n in K.SHAPES.items()
-                           if n != shapes.get(k, 0)}
-        finally:
-            K.LAUNCHES.update(launches)
-            K.SHAPES.clear()
-            K.SHAPES.update(shapes)
-
-    def replay(self, planes):
-        for static, t in zip(self.planes, planes):
-            if static is not None:
-                static.copy_(t)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            K.LAUNCHES[k] += n
-        for k, n in self.shapes.items():
-            K.SHAPES[k] = K.SHAPES.get(k, 0) + n
-        return tuple(t.clone() for t in self.out)
 
 
 def _sign_from_candidates(k_bytes, e_bytes, d_bytes):

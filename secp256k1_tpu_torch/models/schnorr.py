@@ -7,7 +7,7 @@ Tagged hashes run on the host (the batched entry points in one native call
 each); every group operation runs batched on the device.  The three k*G of
 signing (the key, the nonce, the self-verify) are launches of the
 constant-time fixed-base kernel; verify uses the GLV and public-digit
-fixed-base kernels.
+fixed-base kernels, its core replayed as one CUDA graph a width on the GPU.
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; the CPU runs only when the caller passes `device="cpu"`.
@@ -30,8 +30,10 @@ from ..ops import point as pt
 from ..ops import s11n
 from ..ops import scalar as sc
 from ..ops import table as tbl
+from ..ops.cuda import kernels as K
 from ..utils import batching as bt
 from ..utils import errors as ec
+from ..utils import graphs
 from ..utils import hostcurve as hc
 from .ecdsa import _plane_rows, _reduce_digest_np, _status_where
 
@@ -217,6 +219,43 @@ def _schnorr_verify_core(px, py, s, e_neg, r_fe):
 
 
 def _schnorr_verify_e2e_core(pub_x_bytes, r_bytes, s_bytes, e_bytes):
+    """BIP-0340 verify from byte planes (`_schnorr_verify_e2e_body`),
+    through a CUDA graph (`graphs.Cache.run`) where `_verify_graph_key`
+    gives the planes one, else eagerly.  Returns the status plane."""
+    planes = (pub_x_bytes, r_bytes, s_bytes, e_bytes)
+    key = _verify_graph_key(planes)
+    if key is None:
+        if pub_x_bytes.device.type == "cuda":
+            VERIFY_GRAPHS["eager"] += 1
+        return _schnorr_verify_e2e_body(*planes)
+    return _VERIFY_CACHE.run(key, _verify_body_tuple, planes)[0]
+
+
+# How the verify core's calls on the GPU ran (`graphs.Cache.counts`).
+_VERIFY_CACHE = graphs.Cache()
+VERIFY_GRAPHS = _VERIFY_CACHE.counts
+
+
+def _verify_graph_key(planes):
+    """The key of the CUDA graph that verifies these planes, or None where
+    the body runs eagerly: planes off the GPU, or not all contiguous uint8
+    [32, B] on one device (`graphs.plane_width`).  The key holds what the
+    body's launches depend on: the device, the width B, and the GLV and
+    fixed-base switches in force."""
+    width = graphs.plane_width(planes)
+    if width is None:
+        return None
+    return (planes[0].device, width, K.mega_enabled(),
+            K.mega_signed_enabled(), tbl.base_signed_enabled(),
+            tbl.base_window())
+
+
+def _verify_body_tuple(pub_x_bytes, r_bytes, s_bytes, e_bytes):
+    return (_schnorr_verify_e2e_body(pub_x_bytes, r_bytes, s_bytes,
+                                     e_bytes),)
+
+
+def _schnorr_verify_e2e_body(pub_x_bytes, r_bytes, s_bytes, e_bytes):
     """BIP-0340 verify from byte planes: x-only key lift (even y), r < p
     and s < n, e reduced mod n, R = s*G - e*P, then the parity and
     x(R) == r checks."""
@@ -389,10 +428,8 @@ def verify_batch_arrays(pub_x: np.ndarray, msgs: np.ndarray,
     """Batched BIP-0340 verify on numpy arrays.
 
     pub_x: [n, 32] u8 x-only keys; msgs: [n, L] u8 (one length); sigs:
-    [n, 64] u8.  The host runs one native tagged-hash call; parsing, the
-    key lift and the group math run on the device
-    (`_schnorr_verify_e2e_core`).  Returns an [n] bool array.  chunk_lanes
-    cuts the batch into chunks dispatched back to back."""
+    [n, 64] u8.  Returns an [n] bool array: `_verify_status_arrays` is
+    OK.  chunk_lanes cuts the batch into chunks dispatched back to back."""
     device = bt.resolve_device(device)
     n = pub_x.shape[0]
     if sigs.shape != (n, 64) or pub_x.shape != (n, 32) \
@@ -400,6 +437,20 @@ def verify_batch_arrays(pub_x: np.ndarray, msgs: np.ndarray,
         raise ValueError(f"expected [n, 32] keys, [n, L] messages and "
                          f"[n, 64] sigs, got {pub_x.shape}, {msgs.shape}, "
                          f"{sigs.shape}")
+    return _verify_status_arrays(pub_x, msgs, sigs, chunk_lanes,
+                                 device) == ec.OK
+
+
+def _verify_status_arrays(pub_x: np.ndarray, msgs: np.ndarray,
+                          sigs: np.ndarray, chunk_lanes: int | None,
+                          device: torch.device) -> np.ndarray:
+    """[n] int32 statuses of BIP-0340 verify over checked rows (keys
+    [n, 32], messages [n, L], sigs [n, 64]): OK, ERR_INVALID_ENCODING
+    where the key does not lift or r >= p or s >= n, ERR_VERIFY_FAILED
+    where the equation fails.  The host hashes every lane's challenge in
+    one native call; parsing, the key lift and the group math run on the
+    device (`_schnorr_verify_e2e_core`), chunk after chunk."""
+    n = pub_x.shape[0]
     r_arr = np.ascontiguousarray(sigs[:, :32])
     s_arr = np.ascontiguousarray(sigs[:, 32:])
     e_arr = _tagged_hash_rows(TAG_CHALLENGE, [r_arr, pub_x, msgs], n)
@@ -420,7 +471,8 @@ def verify_batch_arrays(pub_x: np.ndarray, msgs: np.ndarray,
                  for lo in range(0, n, chunk_lanes)]
     outs = [dispatch(lo, hi) for lo, hi in spans]
     return np.concatenate([o[:hi - lo].cpu().numpy()
-                           for o, (lo, hi) in zip(outs, spans)]) == ec.OK
+                           for o, (lo, hi) in zip(outs, spans)]).astype(
+                               np.int32)
 
 
 # Single-item conveniences -------------------------------------------------

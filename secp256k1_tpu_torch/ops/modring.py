@@ -22,6 +22,7 @@ from .cuda import kernels as K
 
 NLIMBS = lb.NLIMBS
 DTYPE = lb.DTYPE
+_CONSTS: dict = {}                 # (value, device) -> its [16] limbs
 
 
 class ModRing:
@@ -41,9 +42,15 @@ class ModRing:
     # -- constructors -------------------------------------------------------
 
     def const(self, v: int, batch_shape, device) -> torch.Tensor:
-        """A python-int constant broadcast to a [16, *batch] plane."""
-        x = torch.as_tensor(lb.int_to_limbs(v % self.modulus), dtype=DTYPE,
-                            device=device)
+        """A python-int constant broadcast to a [16, *batch] plane: a view
+        of its limbs, uploaded once a device (no copy from the host inside
+        a CUDA graph's capture)."""
+        key = (v % self.modulus, str(torch.device(device)))
+        x = _CONSTS.get(key)
+        if x is None:
+            x = torch.as_tensor(lb.int_to_limbs(key[0]), dtype=DTYPE,
+                                device=device)
+            _CONSTS[key] = x
         shape = (NLIMBS,) + tuple(batch_shape)
         return x.reshape((NLIMBS,) + (1,) * len(batch_shape)).expand(shape)
 

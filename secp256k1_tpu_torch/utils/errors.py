@@ -1,4 +1,5 @@
-"""Per-lane status codes, the same numbers as `secp256k1_tpu.utils.errors`.
+"""Per-lane status codes, the same numbers as `secp256k1_tpu.utils.errors`;
+ERR_SCHNORR_SIG_HASHTYPE is the port's own (Taproot consensus verify).
 
 Device code returns int32 status planes; host wrappers map them to Python
 exceptions or error strings per lane.  The port keeps its own copy so that it
@@ -17,6 +18,7 @@ ERR_INVALID_RECOVERY_ID = 8
 ERR_MALLEABLE = 9             # s > n/2 when RejectMalleable
 ERR_R_IS_INFINITY = 10        # u1*G + u2*Q = identity
 ERR_V_NEQ_R = 11              # x(R) mod n != r
+ERR_SCHNORR_SIG_HASHTYPE = 12  # BIP-0341: a 65-byte signature's hash type
 
 MESSAGES = {
     OK: "ok",
@@ -31,6 +33,7 @@ MESSAGES = {
     ERR_MALLEABLE: "malleable signature rejected",
     ERR_R_IS_INFINITY: "R is the point at infinity",
     ERR_V_NEQ_R: "v does not equal r",
+    ERR_SCHNORR_SIG_HASHTYPE: "invalid Schnorr signature hash type",
 }
 
 # Verification-failure class: every code a failed ECDSA/Schnorr verify can

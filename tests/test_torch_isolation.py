@@ -8,8 +8,11 @@
 - A kernel wrapper takes the plain version only for CPU tensors.
 - `chip_smoke.py` fails, and prints no result, without a GPU or outside a
   checkout.
+- The plain references of Taproot verify import nothing of JAX, the JAX
+  package or the port (read with `ast`).
 """
 
+import ast
 import json
 import os
 import pkgutil
@@ -138,6 +141,48 @@ def test_slice_entry_points_raise_without_a_gpu():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_taproot_check_raises_without_a_gpu():
+    """Taproot consensus verify takes the GPU by default, like the other
+    entry points."""
+    _need_no_gpu()
+    from secp256k1_tpu_torch.models import bitcoin
+    rows = np.zeros((1, 32), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bitcoin.verify_taproot_batch_arrays(rows, rows,
+                                            np.zeros((1, 65), np.uint8),
+                                            np.full((1,), 64, np.int32))
+
+
+def _imports(path: str) -> set:
+    """Top-level names a file imports, read with `ast` (not run), with
+    the files of its relative imports followed."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            here = os.path.dirname(path)
+            mods = [node.module] if node.module else \
+                [a.name for a in node.names]
+            for m in mods:
+                names |= _imports(os.path.join(here, *m.split(".")) + ".py")
+    return names
+
+
+def test_taproot_references_import_nothing_of_the_program():
+    """The plain references of Taproot verify stand apart from what they
+    check: neither JAX, the JAX package, the port nor torch."""
+    for rel in ("tests/taproot_ref.py", "benchmark/reference/taproot.py"):
+        names = _imports(os.path.join(REPO, rel))
+        assert "hashlib" in names and "numpy" in names, rel
+        assert not names & {"jax", "jaxlib", "secp256k1_tpu",
+                            "secp256k1_tpu_torch", "torch"}, (rel, names)
 
 
 def test_flagship_step_and_sharding_entry_points_raise_without_a_gpu():
