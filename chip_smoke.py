@@ -63,7 +63,11 @@ the run with a non-zero exit code:
    ints; the DRBG kernel `k_rfc6979` (RFC 6979's HMAC-DRBG, which the JAX
    package runs on its host) without and with additional data, candidates
    0 and 1, against the native DRBG at 65,536 lanes and its plain version
-   at 65,536 and 1,024 lanes, timed at both;
+   at 65,536 and 1,024 lanes, timed at both; the challenge kernel
+   `k_bip340_challenge` (BIP-0340's challenge hash, which the JAX package
+   runs on its host) with 32-byte messages against the native tagged hash
+   and its plain version at 65,536 and 16,384 lanes, timed at both, and
+   at every message length of BIP340_LENGTHS against the native hash;
 4. paths (65,536 lanes), each with the launch counts set to 0 just before
    it and read just after, failing if a kernel of that path was not
    launched, a plain version was called or `mod_pow2k` was launched (the
@@ -83,7 +87,8 @@ the run with a non-zero exit code:
    - keyed verify: `verify_batch_arrays_keyed` with corrupted lanes, every
      status against the expected one;
    - Schnorr: `sign_batch_arrays` (BIP-0340 vectors 0-3 in the batch,
-     byte-exact) and `verify_batch_arrays` (vectors 0-14 in the batch);
+     byte-exact) and `verify_batch_arrays` (vectors 0-14 in the batch, the
+     challenges hashed by the challenge kernel);
    - ECDH: `ecdh_batch_arrays` under the default GLV engine,
      `set_mega_signed(False)` and `set_mega(False)`, every status of the
      corrupted lanes, 256 sampled lanes against python ints and every lane
@@ -225,9 +230,12 @@ KERNEL_META = {
     # the fold 256 point_double (and 64 point_add) one-lane calls at w = 4.
     "mod_pow_chain": (f"{CSRC}/modops.cu", f"{PALLAS}:784"),
     "msm_fold": (f"{CSRC}/msm.cu", f"{PALLAS}:1380"),
-    # RFC 6979's DRBG, which the JAX package runs on its host.
+    # RFC 6979's DRBG and BIP-0340's challenge hash, which the JAX package
+    # runs on its host.
     "rfc6979_nonce": (f"{CSRC}/drbg.cu",
                       "none (secp256k1_tpu/native/hostcrypto.cpp)"),
+    "bip340_challenge": (f"{CSRC}/bip340.cu",
+                         "none (secp256k1_tpu/models/schnorr.py)"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -248,6 +256,7 @@ KERNEL_SYMBOL = {
     "mod_pow_chain": "k_mod_pow_chain",
     "msm_fold": "k_msm_fold",
     "rfc6979_nonce": "k_rfc6979",
+    "bip340_challenge": "k_bip340_challenge",
 }
 # The kernels each path must launch.  mod_square is launched where a path
 # takes a square root (SEC1 decompression, recovery, lift_x).
@@ -261,6 +270,8 @@ VERIFY_CORE_KERNELS = FIELD_KERNELS + (
 SIGN_KERNELS = FIELD_KERNELS + ("base_windowed_add",)
 # ECDSA sign derives its nonces on the card: the DRBG kernel first.
 ECDSA_SIGN_KERNELS = SIGN_KERNELS + ("rfc6979_nonce",)
+# Schnorr verify hashes its challenges on the card: the challenge kernel.
+SCHNORR_VERIFY_KERNELS = VERIFY_KERNELS + ("bip340_challenge",)
 POINT_KERNELS = ("point_add", "point_double")
 MSM_KERNELS = ("msm_bucket_accumulate_all", "point_add", "msm_fold")
 SCAN_KERNELS = ("point_add", "msm_fold")
@@ -330,6 +341,15 @@ CORE_ROUNDS = 5                 # --cores: rounds of medians of 7 a core
 # the wallet signer's lanes held to the python-int reference signer.
 DRBG_TIMED_WIDTHS = (LANES, 1024)
 DRBG_SEED = SEED + 17
+# The challenge kernel: timed with 32-byte messages (Taproot's digests) at
+# these widths (a 4-block batch, and one block of the benchmark's
+# `verify.taproot`), checked at every length of BIP340_LENGTHS (55 bytes
+# the most whose padding fits one block, 56 the fewest that spill) at
+# BIP340_LENGTH_LANES lanes, on data of its own seed.
+BIP340_TIMED_WIDTHS = (LANES, 16384)
+BIP340_LENGTHS = (0, 1, 55, 56, 64, 100)
+BIP340_LENGTH_LANES = 4096
+BIP340_SEED = SEED + 18
 WALLET_SAMPLED_LANES = 64
 GLV_ROUNDS = 3                  # --glv: rounds of each GLV kernel's times
 PROFILE_ATTEMPTS = 5
@@ -1038,6 +1058,52 @@ def drbg_checks(int_rate, res, device):
                             lambda: K.rfc6979_nonce_plain(*args), 20, 1,
                             rfc6979_blocks(extra, attempt) * SHA256_BLOCK_OPS
                             * lanes, (96 + 32 * extra) * lanes, lanes=lanes)
+
+
+def bip340_checks(int_rate, res, device):
+    """The challenge kernel `k_bip340_challenge` (`bip340_challenge`): with
+    32-byte messages at each of BIP340_TIMED_WIDTHS lanes against the
+    native tagged hash on the host and bit-exact against its plain version,
+    timed (profiler, cold L2) beside its bound of 32-bit integer operations
+    (`profiling.SHA256_BLOCK_OPS` a compression); at each length of
+    BIP340_LENGTHS against the native hash.  Its data come from a generator
+    of its own."""
+    from secp256k1_tpu_torch import native
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    from secp256k1_tpu_torch.utils import batching as bt
+    from secp256k1_tpu_torch.utils.profiling import (SHA256_BLOCK_OPS,
+                                                     bip340_blocks)
+    name = "bip340_challenge"
+    rng = np.random.default_rng(BIP340_SEED)
+
+    def native_check(rows, planes, lanes, length):
+        got = K.bip340_challenge(*planes).cpu().numpy().T
+        want = native.tagged_hash_batch(K.BIP340_CHALLENGE_TAG, *rows, lanes)
+        wrong = int((got != want).any(axis=1).sum())
+        if wrong:
+            fail(f"kernel {name} with {length}-byte messages: {wrong} of "
+                 f"{lanes} lanes differ from the native tagged hash")
+        say(f"kernel {name} with {length}-byte messages: all {lanes} lanes "
+            f"equal the native tagged hash")
+
+    for lanes in BIP340_TIMED_WIDTHS:
+        rows = [rng.integers(0, 256, (lanes, 32), dtype=np.uint8)
+                for _ in range(3)]
+        args = [bt.byte_plane_np(r, lanes, device) for r in rows]
+        native_check(rows, args, lanes, 32)
+        timed_check(int_rate, res, name, f"{name} at {lanes} lanes",
+                    max_abs_err([K.bip340_challenge(*args)],
+                                [K.bip340_challenge_plain(*args)]),
+                    lambda: K.bip340_challenge(*args),
+                    lambda: K.bip340_challenge_plain(*args), 20, 1,
+                    bip340_blocks(32) * SHA256_BLOCK_OPS * lanes,
+                    (64 + 32 + 32) * lanes, lanes=lanes)
+    for length in BIP340_LENGTHS:
+        lanes = BIP340_LENGTH_LANES
+        rows = [rng.integers(0, 256, (lanes, w), dtype=np.uint8)
+                for w in (32, 32, length)]
+        native_check(rows, [bt.byte_plane_np(r, lanes, device)
+                            for r in rows], lanes, length)
 
 
 def chain_work(e, modulus, lanes):
@@ -1988,7 +2054,7 @@ def schnorr_path(curve, signers, rng):
         msgs[j] = np.frombuffer(bytes.fromhex(r["message"]), np.uint8)
         sigs[j] = np.frombuffer(bytes.fromhex(r["signature"]), np.uint8)
         expected[j] = r["verification result"] == "TRUE"
-    got = run_path("Schnorr verify", VERIFY_KERNELS,
+    got = run_path("Schnorr verify", SCHNORR_VERIFY_KERNELS,
                    lambda: schnorr.verify_batch_arrays(pub_x, msgs, sigs))
     bad = np.nonzero(got != expected)[0]
     if bad.size:
@@ -2326,6 +2392,7 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
             ecdsa._reduce_digest_np(schnorr._tagged_hash_rows(tag, parts,
                                                               LANES))
     host = wall_ms(sign_host, 3)
+    # The native host challenge hash, off verify's path (the card hashes).
     hver = wall_ms(lambda: schnorr._tagged_hash_rows(
         schnorr.TAG_CHALLENGE, [s_sigs[:, :32], s_pub_x, s_msgs], LANES), 3)
     say(f"throughput: Schnorr sign_batch_arrays end to end {ssign[0]:.1f} ms"
@@ -2333,8 +2400,8 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
         f"{rate(ssign[0]):.1f} sign/s, its host tagged hashes and digest "
         f"reductions alone {host[0]:.1f} ms; verify_batch_arrays "
         f"{sver[0]:.1f} ms (median of 5, range {sver[1]:.1f}-{sver[2]:.1f}) "
-        f"= {rate(sver[0]):.1f} verify/s, its host tagged hash alone "
-        f"{hver[0]:.1f} ms")
+        f"= {rate(sver[0]):.1f} verify/s, the challenge kernel included; the "
+        f"native host challenge hash, off the path, {hver[0]:.1f} ms")
     return planes
 
 
@@ -3437,6 +3504,7 @@ def main():
     curve = HostCurve()
     res = kernel_checks(int_rate, curve, rng, device)
     drbg_checks(int_rate, res, device)
+    bip340_checks(int_rate, res, device)
     phase("kernels")
     engine_kernel_checks(int_rate, curve, rng, device, res)
     phase("engine kernels")

@@ -195,8 +195,8 @@ def verify_taproot_batch_arrays(pub_x: np.ndarray, digests: np.ndarray,
     ERR_VERIFY_FAILED where BIP-0340 verify of the first 64 bytes fails
     (a key x >= p or off the curve, r >= p, s >= n, R at infinity, odd
     y(R) or x(R) != r), else OK.  The host applies the rules
-    (`_taproot_host_parse`) and hashes every lane's challenge in one call;
-    the device verifies (`schnorr._verify_status_arrays`)."""
+    (`_taproot_host_parse`); the device hashes every lane's challenge and
+    verifies (`schnorr._verify_status_arrays`)."""
     device = bt.resolve_device(device)
     n = pub_x.shape[0]
     if pub_x.shape != (n, 32) or digests.shape != (n, 32) \

@@ -3,11 +3,13 @@
 The port of `secp256k1_tpu.models.schnorr`: x-only keys (even-y
 convention), tagged hashes, aux-rand nonce derivation, sign with the
 mandatory self-verify through (s - d*e)*G, and verify as R = s*G - e*P.
-Tagged hashes run on the host (the batched entry points in one native call
-each); every group operation runs batched on the device.  The three k*G of
-signing (the key, the nonce, the self-verify) are launches of the
-constant-time fixed-base kernel; verify uses the GLV and public-digit
-fixed-base kernels, its core replayed as one CUDA graph a width on the GPU.
+Signing's tagged hashes and the object API's challenge run on the host (the
+batched entry points in one native call each); the array verify hashes its
+challenge on the device (`K.bip340_challenge`), and every group operation
+runs batched on the device.  The three k*G of signing (the key, the
+nonce, the self-verify) are launches of the constant-time fixed-base
+kernel; verify uses the GLV and public-digit fixed-base kernels, its core
+replayed as one CUDA graph a width and message length on the GPU.
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; the CPU runs only when the caller passes `device="cpu"`.
@@ -218,11 +220,11 @@ def _schnorr_verify_core(px, py, s, e_neg, r_fe):
     return _verify_status(_schnorr_tail_bad(big_r, r_fe))
 
 
-def _schnorr_verify_e2e_core(pub_x_bytes, r_bytes, s_bytes, e_bytes):
+def _schnorr_verify_e2e_core(pub_x_bytes, r_bytes, s_bytes, msg_bytes):
     """BIP-0340 verify from byte planes (`_schnorr_verify_e2e_body`),
     through a CUDA graph (`graphs.Cache.run`) where `_verify_graph_key`
     gives the planes one, else eagerly.  Returns the status plane."""
-    planes = (pub_x_bytes, r_bytes, s_bytes, e_bytes)
+    planes = (pub_x_bytes, r_bytes, s_bytes, msg_bytes)
     key = _verify_graph_key(planes)
     if key is None:
         if pub_x_bytes.device.type == "cuda":
@@ -234,37 +236,47 @@ def _schnorr_verify_e2e_core(pub_x_bytes, r_bytes, s_bytes, e_bytes):
 # How the verify core's calls on the GPU ran (`graphs.Cache.counts`).
 _VERIFY_CACHE = graphs.Cache()
 VERIFY_GRAPHS = _VERIFY_CACHE.counts
+# The lanes of `_verify_status_arrays` whose challenge the kernel hashed
+# ("device": CUDA planes) and whose challenge its plain version hashed
+# ("host": CPU planes).
+CHALLENGE_LANES = {"device": 0, "host": 0}
 
 
 def _verify_graph_key(planes):
     """The key of the CUDA graph that verifies these planes, or None where
     the body runs eagerly: planes off the GPU, or not all contiguous uint8
-    [32, B] on one device (`graphs.plane_width`).  The key holds what the
-    body's launches depend on: the device, the width B, and the GLV and
+    on one device, the key, r and s [32, B] and the message [L, B]
+    (`graphs.plane_width`).  The key holds what the body's launches depend
+    on: the device, the width B, the message length L, and the GLV and
     fixed-base switches in force."""
-    width = graphs.plane_width(planes)
-    if width is None:
+    width = graphs.plane_width(planes[:3])
+    msg = planes[3]
+    length = msg.shape[0] if len(msg.shape) == 2 else -1
+    if width is None or msg.device != planes[0].device \
+            or graphs.plane_width([msg], rows=length) != width:
         return None
-    return (planes[0].device, width, K.mega_enabled(),
+    return (planes[0].device, width, length, K.mega_enabled(),
             K.mega_signed_enabled(), tbl.base_signed_enabled(),
             tbl.base_window())
 
 
-def _verify_body_tuple(pub_x_bytes, r_bytes, s_bytes, e_bytes):
+def _verify_body_tuple(pub_x_bytes, r_bytes, s_bytes, msg_bytes):
     return (_schnorr_verify_e2e_body(pub_x_bytes, r_bytes, s_bytes,
-                                     e_bytes),)
+                                     msg_bytes),)
 
 
-def _schnorr_verify_e2e_body(pub_x_bytes, r_bytes, s_bytes, e_bytes):
-    """BIP-0340 verify from byte planes: x-only key lift (even y), r < p
-    and s < n, e reduced mod n, R = s*G - e*P, then the parity and
-    x(R) == r checks."""
+def _schnorr_verify_e2e_body(pub_x_bytes, r_bytes, s_bytes, msg_bytes):
+    """BIP-0340 verify from byte planes (the key, r and s [32, B], the
+    message [L, B]): the challenge e = H_challenge(r || P || m)
+    (`K.bip340_challenge`), x-only key lift (even y), r < p and s < n, e
+    reduced mod n, R = s*G - e*P, then the parity and x(R) == r checks."""
     want_odd = torch.zeros(pub_x_bytes.shape[1:], dtype=torch.bool,
                            device=pub_x_bytes.device)
     pub, pub_status = s11n.decompress(want_odd, pub_x_bytes)
     r_fe, r_red = fe.from_bytes_any(r_bytes)
     s_sc, s_red = sc.S.from_bytes_any(s_bytes)
-    e, _ = sc.S.from_bytes_any(e_bytes)
+    e, _ = sc.S.from_bytes_any(K.bip340_challenge(r_bytes, pub_x_bytes,
+                                                  msg_bytes))
     big_r = glv.double_scalar_mult_basepoint(s_sc, sc.neg(e), pub)
     st = _verify_status(_schnorr_tail_bad(big_r, r_fe))
     bad_parse = (pub_status != ec.OK) | r_red | s_red
@@ -447,21 +459,22 @@ def _verify_status_arrays(pub_x: np.ndarray, msgs: np.ndarray,
     """[n] int32 statuses of BIP-0340 verify over checked rows (keys
     [n, 32], messages [n, L], sigs [n, 64]): OK, ERR_INVALID_ENCODING
     where the key does not lift or r >= p or s >= n, ERR_VERIFY_FAILED
-    where the equation fails.  The host hashes every lane's challenge in
-    one native call; parsing, the key lift and the group math run on the
-    device (`_schnorr_verify_e2e_core`), chunk after chunk."""
+    where the equation fails.  The challenge hash, parsing, the key lift
+    and the group math run on the device (`_schnorr_verify_e2e_core`),
+    chunk after chunk; `CHALLENGE_LANES` counts the lanes."""
     n = pub_x.shape[0]
     r_arr = np.ascontiguousarray(sigs[:, :32])
     s_arr = np.ascontiguousarray(sigs[:, 32:])
-    e_arr = _tagged_hash_rows(TAG_CHALLENGE, [r_arr, pub_x, msgs], n)
 
     def dispatch(lo, hi):
         b = bt.bucket(hi - lo)
+        CHALLENGE_LANES["device" if device.type == "cuda" else "host"] += \
+            hi - lo
         return _schnorr_verify_e2e_core(
             bt.byte_plane_np(pub_x[lo:hi], b, device),
             bt.byte_plane_np(r_arr[lo:hi], b, device),
             bt.byte_plane_np(s_arr[lo:hi], b, device),
-            bt.byte_plane_np(e_arr[lo:hi], b, device))
+            bt.byte_plane_np(msgs[lo:hi], b, device))
 
     chunk_lanes = bt.auto_chunk(n, chunk_lanes)
     if chunk_lanes is None or n <= chunk_lanes:

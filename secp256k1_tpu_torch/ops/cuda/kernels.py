@@ -23,15 +23,16 @@ Two more wrappers run a chain of those kernels' work in one launch, where
 the JAX package runs the chain of `pallas_call`s inside one compiled
 program: `mod_pow_chain` (x^e for a public constant e: the chains of
 `ModRing.pow_const_chain`, of which `mod_pow2k` is the one-step case) and
-`msm_fold` (the Horner fold of `msm.combine_windows`).  One replaces no TPU
-kernel: `rfc6979_nonce`, RFC 6979's DRBG, which the JAX package runs on its
-host.
+`msm_fold` (the Horner fold of `msm.combine_windows`).  Two replace no TPU
+kernel, since the JAX package runs what they compute on its host:
+`rfc6979_nonce`, RFC 6979's DRBG, and `bip340_challenge`, BIP-0340's
+challenge hash.
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
 Digit planes are int32 [W, B]; per-lane point tables int32 [15, 3, 16, B];
-the DRBG's byte planes uint8 [32, B] (row j byte j of each lane's
-big-endian value).
+the byte planes of the DRBG and the challenge hash uint8 [32, B] (row j
+byte j of each lane's big-endian value; a message of L bytes [L, B]).
 
 The switches `mega_enabled`/`set_mega` and
 `mega_signed_enabled`/`set_mega_signed` are the JAX package's own
@@ -47,6 +48,7 @@ import os
 
 import torch
 
+from ... import native
 from .. import limbs as lb
 from . import build
 
@@ -59,12 +61,14 @@ KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "base_windowed_add", "glv_windowed_mult_from_points",
            "msm_bucket_accumulate_all", "glv_windowed_mult", "point_add",
            "point_double", "point_double4", "point_add_mixed",
-           "point_lookup_add", "mod_pow_chain", "msm_fold", "rfc6979_nonce")
+           "point_lookup_add", "mod_pow_chain", "msm_fold", "rfc6979_nonce",
+           "bip340_challenge")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 # Launches by (kernel, lanes, detail): detail the exponent of mod_pow_chain,
 # k of mod_pow2k, the window bits of msm_fold (lanes: its windows), the
-# attempt of rfc6979_nonce, else None.
+# attempt of rfc6979_nonce, the message length of bip340_challenge, else
+# None.
 SHAPES: dict = {}
 
 
@@ -668,6 +672,24 @@ def rfc6979_nonce_plain(d_plane, e_plane, extra_plane=None,
                        1).reshape(32, d_plane.shape[1]).to(torch.uint8)
 
 
+# BIP-0340's challenge tag, whose tagged hash `bip340_challenge` computes.
+BIP340_CHALLENGE_TAG = b"BIP0340/challenge"
+
+
+def bip340_challenge_plain(r_plane, px_plane, m_plane):
+    """Each lane's BIP-0340 challenge digest SHA256(t || t || r || px || m),
+    t = SHA256("BIP0340/challenge"), big-endian and not reduced: the
+    function of `csrc/bip340.cu` `k_bip340_challenge`, the rows hashed by
+    the native library's `tagged_hash_batch` on the host.  r_plane,
+    px_plane: uint8 [32, B]; m_plane: uint8 [L, B].  Returns uint8 [32, B]
+    on the planes' device."""
+    rows = [p.T.contiguous().cpu().numpy()
+            for p in (r_plane, px_plane, m_plane)]
+    out = native.tagged_hash_batch(BIP340_CHALLENGE_TAG, *rows,
+                                   r_plane.shape[1])
+    return torch.from_numpy(out.T.copy()).to(r_plane.device)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -1052,4 +1074,28 @@ def rfc6979_nonce(d_plane, e_plane, extra_plane=None, attempt: int = 0):
                 [d_plane, e_plane, planes[-1], out],
                 [lanes, attempt, int(extra_plane is not None)],
                 (lanes, attempt))
+    return out
+
+
+def bip340_challenge(r_plane, px_plane, m_plane):
+    """Each lane's BIP-0340 challenge digest (see `bip340_challenge_plain`
+    for the function), one launch of `k_bip340_challenge` (`csrc/bip340.cu`,
+    one thread a lane): r_plane and px_plane uint8 [32, B], m_plane uint8
+    [L, B], any L.  Returns uint8 [32, B].  Replaces no TPU kernel: the JAX
+    package hashes the challenge on its host."""
+    name = "bip340_challenge"
+    on_cpu = _on_cpu(r_plane, px_plane, m_plane)
+    lanes = r_plane.shape[1] if r_plane.dim() == 2 else -1
+    _check(name, r_plane, 32, lanes, torch.uint8)
+    _check(name, px_plane, 32, lanes, torch.uint8)
+    length = m_plane.shape[0] if m_plane.dim() == 2 else -1
+    _check(name, m_plane, length, lanes, torch.uint8)
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return bip340_challenge_plain(r_plane, px_plane, m_plane)
+    out = torch.empty_like(r_plane)
+    if lanes:
+        _launch(name, "bip340", "bip340_challenge",
+                [r_plane, px_plane, m_plane, out], [lanes, length],
+                (lanes, length))
     return out

@@ -57,6 +57,13 @@ def rfc6979_blocks(extra: bool, attempt: int) -> int:
     return (18 if extra else 16) + 8 * attempt
 
 
+def bip340_blocks(length: int) -> int:
+    """SHA-256 compressions of one lane of `kernels.bip340_challenge` with
+    an L-byte message: R.x || P.x after the tag's constant midstate, then
+    m, the 0x80 byte and the 8-byte bit length."""
+    return 1 + (length + 9 + 63) // 64
+
+
 TRACE_FILE = "trace.json"
 
 

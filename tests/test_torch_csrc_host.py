@@ -39,6 +39,7 @@ HARNESS = r"""
 #include <vector>
 
 #include "base.cuh"
+#include "bip340.cu"
 #include "drbg.cuh"
 #include "glv.cuh"
 #include "modops.cuh"
@@ -248,6 +249,19 @@ extern "C" void rfc6979_lanes(const u32* seed, int nd, int attempt,
     else rfc6979_lane<24>(seed + 24 * i, attempt, out + 8 * i);
   }
 }
+
+// k_bip340_challenge lane by lane over the byte planes r, px [32, n] and
+// m [len, n]: each lane's digest as 8 big-endian words.
+extern "C" void bip340_lanes(const uint8_t* r, const uint8_t* px,
+                             const uint8_t* m, int len, u32* out, int n) {
+  for (int i = 0; i < n; ++i)
+    bip340_challenge_lane(r, px, m, n, i, len, out + 8 * i);
+}
+
+// The kernel's tag midstate.
+extern "C" void bip340_midstate(u32* out) {
+  for (int i = 0; i < 8; ++i) out[i] = kChallengeMid[i];
+}
 """
 
 FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4, "mulw21": 5}
@@ -259,7 +273,7 @@ def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
     for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh", "base.cuh",
-                 "modops.cuh", "drbg.cuh"):
+                 "modops.cuh", "drbg.cuh", "bip340.cu"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -744,3 +758,47 @@ def test_drbg_lanes_match_the_native_drbg(host_lib, extra):
         host_lib.rfc6979_lanes(_ptr(seed), seed.shape[1], attempt, _ptr(out),
                                lanes)
         assert np.array_equal(out.astype(">u4").view(np.uint8), want)
+
+
+# Message lengths of the challenge hash: 55 bytes are the most whose
+# padding fits the block after R.x || P.x, 56 the fewest that spill into
+# another.
+BIP340_LENGTHS = [0, 1, 32, 55, 56, 64, 100]
+
+
+@pytest.mark.parametrize("length", BIP340_LENGTHS)
+def test_bip340_challenge_lanes_match_hashlib_and_native(host_lib, length):
+    """k_bip340_challenge's lane body (bip340.cu) at 16 lanes of seeded
+    random rows, byte for byte against hashlib's SHA256(t || t || r || px
+    || m) and the native library's tagged hash."""
+    from secp256k1_tpu_torch import native
+    rng = np.random.default_rng(340 + length)
+    lanes = 16
+    rows = [rng.integers(0, 256, (lanes, w), dtype=np.uint8)
+            for w in (32, 32, length)]
+    planes = [np.ascontiguousarray(a.T) for a in rows]
+    out = np.zeros((lanes, 8), np.uint32)
+    host_lib.bip340_lanes(*[_ptr(p) for p in planes], length, _ptr(out),
+                          lanes)
+    got = out.astype(">u4").view(np.uint8)
+    t = hashlib.sha256(K.BIP340_CHALLENGE_TAG).digest()
+    want = [hashlib.sha256(t + t + b"".join(a[i].tobytes() for a in rows))
+            .digest() for i in range(lanes)]
+    assert [g.tobytes() for g in got] == want
+    assert np.array_equal(got, native.tagged_hash_batch(
+        K.BIP340_CHALLENGE_TAG, *rows, lanes))
+
+
+def test_bip340_tag_midstate_is_the_tags_compression(host_lib):
+    """The kernel's constant midstate is the compression of SHA256(tag) ||
+    SHA256(tag) from the IV: the plain compression gives it, and its
+    compression of the padding of those 64 bytes is hashlib's digest."""
+    mid = np.zeros(8, np.uint32)
+    host_lib.bip340_midstate(_ptr(mid))
+    t = hashlib.sha256(K.BIP340_CHALLENGE_TAG).digest()
+    words = [int(w) for w in np.frombuffer(t + t, ">u4")]
+    assert mid.tolist() == K._sha256_block_plain(list(K._SHA256_IV), words)
+    final = K._sha256_block_plain(mid.tolist(),
+                                  [0x80000000] + [0] * 14 + [64 * 8])
+    assert b"".join(w.to_bytes(4, "big") for w in final) == \
+        hashlib.sha256(t + t).digest()

@@ -2,8 +2,9 @@
 lanes: `_sign_e2e_core` (the port's `_sign_from_candidates`, which
 takes the same candidates; its `_sign_e2e_core` derives them first),
 `_recover_core`, `_verify_keyed_core`, the three
-Schnorr sign stages and `_schnorr_verify_e2e_core`, every output (bytes,
-flags, statuses) exact.
+Schnorr sign stages and `_schnorr_verify_e2e_core` (the JAX core given the
+challenge digests, the port's the messages), every output (bytes, flags,
+statuses) exact.
 
 Marked `slow`: each jitted JAX core takes minutes to compile on XLA:CPU, so
 tier-1 (`-m 'not slow'`) leaves it out.  Run it with
@@ -147,23 +148,29 @@ def test_schnorr_stages_and_verify_match_jax(lanes):
     j2, p2 = jschnorr._schnorr_sign_stage2(jk), \
         schnorr._schnorr_sign_stage2(pk)
     _assert_same(j2, p2)
+    # Stage 3 signs seeded messages with their challenges, reduced mod n.
+    pub_x = p1[0].T.numpy().astype(np.uint8)
+    r_rows = p2[0].T.numpy().astype(np.uint8)
     rng = np.random.default_rng(3003)
-    e_rows = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
-    e_rows[:, 0] &= 0x7F                            # e < n
+    m_rows = rng.integers(0, 256, (LANES, 32), dtype=np.uint8)
+    e_rows = ecdsa._reduce_digest_np(schnorr._tagged_hash_rows(
+        schnorr.TAG_CHALLENGE, [r_rows, pub_x, m_rows], LANES))
     je, pe = _both(e_rows)
     j3 = jschnorr._schnorr_sign_stage3(jk, j2[1], j1[1], je, j2[0])
     p3 = schnorr._schnorr_sign_stage3(pk, p2[1], p1[1], pe, p2[0])
     _assert_same(j3, p3)
 
-    # Verify what stage 3 signed, with the challenge it was given, plus a
-    # flipped signature byte, an s >= n and an r >= p.
-    pub_x = p1[0].T.numpy().astype(np.uint8)
-    r_rows = p2[0].T.numpy().astype(np.uint8)
+    # Verify what stage 3 signed, plus a flipped signature byte, an s >= n
+    # and an r >= p: the JAX core from the host's challenge digests of
+    # those rows, the port's from the messages (it hashes them itself).
     s_rows = p3[0].T.numpy().astype(np.uint8)
     r_rows[10, 31] ^= 1
     s_rows[11] = _rows([N])[0]
     r_rows[12] = _rows([P])[0]
-    args = [_both(a) for a in (pub_x, r_rows, s_rows, e_rows)]
-    jv = jschnorr._schnorr_verify_e2e_core(*[a[0] for a in args])
-    pv = schnorr._schnorr_verify_e2e_core(*[a[1] for a in args])
+    e_verify = schnorr._tagged_hash_rows(schnorr.TAG_CHALLENGE,
+                                         [r_rows, pub_x, m_rows], LANES)
+    jv = jschnorr._schnorr_verify_e2e_core(
+        *[_both(a)[0] for a in (pub_x, r_rows, s_rows, e_verify)])
+    pv = schnorr._schnorr_verify_e2e_core(
+        *[_both(a)[1] for a in (pub_x, r_rows, s_rows, m_rows)])
     _assert_same([jv], [pv])

@@ -10,7 +10,14 @@ through the port once (module fixture): every length 0, 32, 63, 64, 65,
 traffic; r = p, s = n, key x = p; Core's precedence where rules collide;
 and BIP-0340's published vectors (those of 32-byte messages) as 64-byte
 signatures.  Each case is a test of its own lanes.  Beside it,
-`schnorr.verify_batch_arrays` against the status helper both share.
+`schnorr.verify_batch_arrays` against the status helper both share, and
+the challenge lanes it counts (`schnorr.CHALLENGE_LANES`).
+
+On a card (marked `card`, skipped without one): the same batch tiled to
+16,384 lanes, a block of the benchmark's `verify.taproot`, through the
+Schnorr core's replayed CUDA graph, every status the reference's and every
+lane's challenge hashed by the kernel.  Run there with `python -m pytest
+--noconftest -p no:cacheprovider -m card tests/test_torch_taproot.py`.
 """
 
 import csv
@@ -263,3 +270,47 @@ def test_schnorr_verify_is_ok_of_the_status_helper():
     assert ok.tolist() == [ref.schnorr_verify(d.tobytes(), p.tobytes(),
                                               s.tobytes())
                            for p, d, s in zip(pubs, digests, sig64)]
+
+
+def test_challenge_lanes_count_the_host_on_the_cpu(checked):
+    """On the CPU every lane's challenge is the plain version's: the one
+    batch again adds its lanes under "host" and none under "device"."""
+    lanes, _, want = checked
+    before = dict(schnorr.CHALLENGE_LANES)
+    got = bitcoin.verify_taproot_batch_arrays(*lanes.arrays(), device=CPU)
+    assert np.array_equal(got, want)
+    assert schnorr.CHALLENGE_LANES == dict(
+        before, host=before["host"] + len(lanes.pubs))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+BLOCK_LANES = 16384
+
+
+@pytest.mark.card
+def test_card_replayed_graph_equals_the_reference(card):
+    """The one batch, every case and corruption kind, tiled to a block of
+    16,384 lanes: a first call (capture or replay), then one that replays
+    the core's graph, both with the reference's statuses, and each lane's
+    challenge counted under "device"."""
+    lanes = _build()
+    arrays = lanes.arrays()
+    want = ref.statuses(*arrays, key_logs=lanes.logs)
+    pick = np.arange(BLOCK_LANES) % len(lanes.pubs)
+    block = [a[pick] for a in arrays]
+    before = dict(schnorr.CHALLENGE_LANES)
+    first = bitcoin.verify_taproot_batch_arrays(*block, device=card)
+    graphs = dict(schnorr.VERIFY_GRAPHS)
+    second = bitcoin.verify_taproot_batch_arrays(*block, device=card)
+    assert schnorr.VERIFY_GRAPHS == dict(
+        graphs, replayed=graphs["replayed"] + 1)
+    assert np.array_equal(first, want[pick])
+    assert np.array_equal(second, want[pick])
+    assert schnorr.CHALLENGE_LANES == dict(
+        before, device=before["device"] + 2 * BLOCK_LANES)
