@@ -9,8 +9,9 @@ Entry points take `device=None`, which means the GPU, and raise when there
 is none; `device="cpu"` runs the plain path.  The random-oracle suite runs
 its two maps as one map over both halves of the batch side by side (twice
 the width, half the launches); every lane's value is the one of two maps.
-`expand_message_xmd_batch` hashes with the native library and raises where
-it does not build: there is no per-lane fallback.
+The arrays entry points take messages of varying length as zero-padded rows
+and their lengths.  `expand_message_xmd_batch` hashes with the native
+library and raises where it does not build: there is no per-lane fallback.
 """
 
 from __future__ import annotations
@@ -63,29 +64,36 @@ def expand_message_xmd(msg: bytes, dst: bytes, n_out: int) -> bytes:
     return out[:n_out]
 
 
-def expand_message_xmd_batch(msgs: np.ndarray, dst: bytes,
-                             n_out: int) -> np.ndarray:
-    """expand_message_xmd over uniform-length messages, msgs [n, L] u8:
-    one native `sha256_batch` call a hash stage (1 + ell calls).  The same
-    bytes as `expand_message_xmd`.  Raises if the native library does not
-    build."""
+# SHA-256 compressions that `expand_message_xmd_batch` ran on the host, as
+# the native hashing counts them ("blocks"), and the messages it expanded
+# ("messages").
+XMD_HOST_BLOCKS = {"blocks": 0, "messages": 0}
+
+
+def expand_message_xmd_batch(msgs: np.ndarray, dst: bytes, n_out: int,
+                             lens=None) -> np.ndarray:
+    """expand_message_xmd over msgs [n, L] u8: row i is the message of
+    its first lens[i] bytes (lens [n] integers in [0, L]; None: every row
+    whole).  One native call a hash stage (1 + ell calls), the first over
+    the rows each at its own length, between Z_pad and b0's tail.  The
+    same bytes as `expand_message_xmd`; counts its compressions in
+    `XMD_HOST_BLOCKS`.  Raises if the native library does not build."""
     dst, ell = _dst_and_ell(dst, n_out)
     n = msgs.shape[0]
-    dst_prime = np.frombuffer(dst + bytes([len(dst)]), np.uint8)
-    dp = np.broadcast_to(dst_prime, (n, dst_prime.shape[0]))
-
-    def rows(val: bytes):
-        return np.broadcast_to(np.frombuffer(val, np.uint8), (n, len(val)))
-
-    b0 = native.sha256_batch(np.concatenate(
-        [rows(b"\x00" * _H_BLOCK), msgs,
-         rows(n_out.to_bytes(2, "big") + b"\x00"), dp], axis=1))
-    prev = native.sha256_batch(np.concatenate([b0, rows(b"\x01"), dp], 1))
+    dst_prime = dst + bytes([len(dst)])
+    # b0 = H(Z_pad || msg || I2OSP(n_out, 2) || I2OSP(0, 1) || DST_prime)
+    b0 = native.sha256_batch(
+        msgs, lens, prefix=bytes(_H_BLOCK),
+        suffix=n_out.to_bytes(2, "big") + b"\x00" + dst_prime,
+        tally=XMD_HOST_BLOCKS)
+    prev = native.sha256_batch(b0, suffix=b"\x01" + dst_prime,
+                               tally=XMD_HOST_BLOCKS)
     blocks = [prev]
     for i in range(2, ell + 1):
-        prev = native.sha256_batch(np.concatenate(
-            [b0 ^ prev, rows(bytes([i])), dp], axis=1))
+        prev = native.sha256_batch(b0 ^ prev, suffix=bytes([i]) + dst_prime,
+                                   tally=XMD_HOST_BLOCKS)
         blocks.append(prev)
+    XMD_HOST_BLOCKS["messages"] += n
     return np.concatenate(blocks, axis=1)[:, :n_out]
 
 
@@ -159,34 +167,40 @@ def _nu_bytes_core(u_bytes):
     return fe.to_bytes(aff.x), fe.to_bytes(aff.y), pt.is_identity(q)
 
 
-def _h2c_arrays(msgs: np.ndarray, dst: bytes, random_oracle: bool, device):
+def _h2c_arrays(msgs: np.ndarray, dst: bytes, random_oracle: bool, lens,
+                device):
     device = bt.resolve_device(device)
     n = msgs.shape[0]
     b = bt.bucket(n)
     if random_oracle:
-        uniform = expand_message_xmd_batch(msgs, dst, 96)
+        uniform = expand_message_xmd_batch(msgs, dst, 96, lens)
         xb, yb, ident = _ro_bytes_core(
             bt.byte_plane_np(np.ascontiguousarray(uniform[:, :48]), b, device),
             bt.byte_plane_np(np.ascontiguousarray(uniform[:, 48:]), b, device))
     else:
-        uniform = expand_message_xmd_batch(msgs, dst, 48)
+        uniform = expand_message_xmd_batch(msgs, dst, 48, lens)
         xb, yb, ident = _nu_bytes_core(bt.byte_plane_np(uniform, b, device))
     xs = xb[:, :n].cpu().numpy().astype(np.uint8).T
     ys = yb[:, :n].cpu().numpy().astype(np.uint8).T
     return np.concatenate([xs, ys], axis=1), ident[:n].cpu().numpy()
 
 
-def hash_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, device=None):
+def hash_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, lens=None,
+                               device=None):
     """secp256k1_XMD:SHA-256_SSWU_RO_ on numpy arrays.  msgs: [n, L] u8
-    (uniform length).  The host runs 1 + ell batched native SHA-256 calls;
-    both maps and the add run on the device.  Returns (points [n, 64] u8
-    affine x || y, is_identity [n] bool)."""
-    return _h2c_arrays(msgs, dst, True, device)
+    zero-padded rows, row i the message of its first lens[i] bytes (lens
+    [n] integers in [0, L]; None: every row whole, of length L).  The
+    host runs 1 + ell batched native SHA-256 calls; both maps and the add
+    run on the device.  Returns (points [n, 64] u8 affine x || y,
+    is_identity [n] bool); raises ValueError on a bad lens."""
+    return _h2c_arrays(msgs, dst, True, lens, device)
 
 
-def encode_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, device=None):
-    """secp256k1_XMD:SHA-256_SSWU_NU_ on numpy arrays (one map)."""
-    return _h2c_arrays(msgs, dst, False, device)
+def encode_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, lens=None,
+                                 device=None):
+    """secp256k1_XMD:SHA-256_SSWU_NU_ on numpy arrays (one map); msgs and
+    lens as in `hash_to_curve_batch_arrays`."""
+    return _h2c_arrays(msgs, dst, False, lens, device)
 
 
 def hash_to_curve(msg: bytes, dst: bytes, device=None):

@@ -1,6 +1,7 @@
 """The port's native host runtime: ctypes bindings to `hostcrypto.cpp`.
 
-Batched SHA-256, the RFC 6979 HMAC-DRBG (first candidate of every lane,
+Batched SHA-256 (of whole rows, or each at its own length, between a common
+prefix and suffix), the RFC 6979 HMAC-DRBG (first candidate of every lane,
 with optional per-lane additional data, and the continuation of one lane
 past a rejected candidate), BIP-0340 tagged hashes, the strict-DER ECDSA
 signature parse (alone, or behind BIP-0066 for consensus verify) and the
@@ -71,8 +72,11 @@ def lib() -> ctypes.CDLL:
         if not os.path.exists(path):
             _build(path)
         L = ctypes.CDLL(path)
-        L.sha256_batch.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_size_t,
-                                   _U8P]
+        L.sha256_batch.argtypes = [_U8P, _I32P, ctypes.c_size_t,
+                                   ctypes.c_size_t, ctypes.c_char_p,
+                                   ctypes.c_size_t, ctypes.c_char_p,
+                                   ctypes.c_size_t, _U8P]
+        L.sha256_batch.restype = ctypes.c_uint64
         L.rfc6979_nonce_batch.argtypes = [_U8P, _U8P, _U8P,
                                           ctypes.c_size_t, _U8P, _U8P, _U8P]
         L.rfc6979_continue.argtypes = [_U8P, _U8P, _U8P]
@@ -85,7 +89,7 @@ def lib() -> ctypes.CDLL:
                            _U8P, _U8P, _U8P]
         L.der_sig_encode_batch.argtypes = [_U8P, _U8P, ctypes.c_size_t,
                                            ctypes.c_uint8, _U8P, _I32P]
-        for fn in (L.sha256_batch, L.rfc6979_nonce_batch, L.rfc6979_continue,
+        for fn in (L.rfc6979_nonce_batch, L.rfc6979_continue,
                    L.tagged_hash_batch, L.asn1_sig_parse_batch,
                    L.bip0066_sig_parse_batch, L.der_sig_encode_batch):
             fn.restype = None
@@ -105,12 +109,36 @@ def _rows(arr, width: int | None = None) -> np.ndarray:
     return arr
 
 
-def sha256_batch(msgs: np.ndarray) -> np.ndarray:
-    """[B, L] u8 -> [B, 32] u8 digests."""
+def lane_lengths(lens, b: int, width: int) -> np.ndarray:
+    """lens as contiguous [b] int32; raises ValueError unless it is [b]
+    integers in [0, width]."""
+    lens = np.asarray(lens)
+    if lens.shape != (b,) or not np.issubdtype(lens.dtype, np.integer):
+        raise ValueError(f"lens must be [{b}] integers, got {lens.shape} "
+                         f"{lens.dtype}")
+    if b and (lens.min() < 0 or lens.max() > width):
+        raise ValueError(f"lengths must lie in [0, {width}], got "
+                         f"{lens.min()}..{lens.max()}")
+    return np.ascontiguousarray(lens, dtype=np.int32)
+
+
+def sha256_batch(msgs: np.ndarray, lens=None, prefix: bytes = b"",
+                 suffix: bytes = b"", tally: dict | None = None) -> np.ndarray:
+    """[B, L] u8 rows -> [B, 32] u8 digests of `prefix`, row i's first
+    lens[i] bytes (lens [B] integers in [0, L]; None: every row whole),
+    then `suffix`.  With `tally`, adds the compressions run to
+    tally["blocks"].  Raises ValueError on a bad lens."""
     msgs = _rows(msgs)
-    b, ln = msgs.shape
+    b, width = msgs.shape
+    lens_p = None
+    if lens is not None:
+        lens = lane_lengths(lens, b, width)
+        lens_p = lens.ctypes.data_as(_I32P)
     out = np.empty((b, 32), dtype=np.uint8)
-    lib().sha256_batch(_p(msgs), ln, b, _p(out))
+    blocks = lib().sha256_batch(_p(msgs), lens_p, width, b, prefix,
+                                len(prefix), suffix, len(suffix), _p(out))
+    if tally is not None:
+        tally["blocks"] += blocks
     return out
 
 

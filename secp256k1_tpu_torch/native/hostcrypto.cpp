@@ -1,7 +1,8 @@
-// Native host-side batch crypto of the PyTorch port: SHA-256, HMAC-SHA256,
-// RFC 6979 nonce derivation (with optional per-lane additional data),
-// BIP-0340 tagged hashes, the strict-DER signature parse (alone, or behind
-// BIP-0066's encoding rules for consensus verify) and the strict-DER
+// Native host-side batch crypto of the PyTorch port: SHA-256 (of whole rows,
+// or each at its own length, between a common prefix and suffix),
+// HMAC-SHA256, RFC 6979 nonce derivation (with optional per-lane additional
+// data), BIP-0340 tagged hashes, the strict-DER signature parse (alone, or
+// behind BIP-0066's encoding rules for consensus verify) and the strict-DER
 // signature encode, as C batch APIs loaded from Python with ctypes
 // (secp256k1_tpu_torch/native/__init__.py).
 //
@@ -26,6 +27,7 @@ struct Sha256 {
   uint64_t len = 0;
   uint8_t buf[64];
   size_t buflen = 0;
+  uint64_t blocks = 0;  // compressions run
 
   Sha256() { reset(); }
 
@@ -43,6 +45,7 @@ struct Sha256 {
   }
 
   void block(const uint8_t* p) {
+    blocks++;
     static const uint32_t K[64] = {
         0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
         0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
@@ -164,12 +167,25 @@ void hmac_sha256(const uint8_t* key, size_t keylen, const uint8_t* const* parts,
 
 extern "C" {
 
-// Batched SHA-256 of B equal-length messages (row-major [B, msg_len]).
-void sha256_batch(const uint8_t* msgs, size_t msg_len, size_t batch,
-                  uint8_t* out /* [B, 32] */) {
+// Batched SHA-256 of B rows (row-major [B, row_len]) between one prefix and
+// one suffix: prefix[0, prefix_len), then row i's first lens[i] bytes, or
+// the whole row where lens is NULL (the caller keeps 0 <= lens[i] <=
+// row_len), then suffix[0, suffix_len).  Returns the compressions run over
+// the batch.
+uint64_t sha256_batch(const uint8_t* rows, const int32_t* lens,
+                      size_t row_len, size_t batch, const uint8_t* prefix,
+                      size_t prefix_len, const uint8_t* suffix,
+                      size_t suffix_len, uint8_t* out /* [B, 32] */) {
+  uint64_t blocks = 0;
   for (size_t i = 0; i < batch; i++) {
-    sha256(msgs + i * msg_len, msg_len, out + i * 32);
+    Sha256 s;
+    if (prefix_len) s.update(prefix, prefix_len);
+    s.update(rows + i * row_len, lens ? size_t(lens[i]) : row_len);
+    if (suffix_len) s.update(suffix, suffix_len);
+    s.final(out + i * 32);
+    blocks += s.blocks;
   }
+  return blocks;
 }
 
 // Batched RFC 6979 nonce derivation: for each lane, HMAC-DRBG seeded with

@@ -8,9 +8,9 @@
   pipeline compiles);
 - `ModRing.from_wide_bytes` against python ints on strings >= p;
 - the map's edge lanes (u = 0, tv2 = 0, u = p - 1, strings >= p) and the
-  isogeny's zero denominators against a python-int oracle written here
-  from the RFC's straightforward form (section 6.6.2, not the straight-line
-  one the port follows);
+  isogeny's zero denominators against the python-int oracle of
+  `h2c_oracle.py`, the RFC's straightforward form (section 6.6.2, not the
+  straight-line one the port follows) on the JAX package's constants;
 - `slow`: the port's device cores against the JAX package's jitted ones.
 
 Every comparison is exact.
@@ -23,13 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+import h2c_oracle as oracle
 from secp256k1_tpu.models import h2c as jh2c
 from secp256k1_tpu_torch.models import h2c
 from secp256k1_tpu_torch.ops import field as fe
 from secp256k1_tpu_torch.ops import limbs as lb
 from secp256k1_tpu_torch.ops import swu
 from secp256k1_tpu_torch.utils import batching as bt
-from secp256k1_tpu_torch.utils import hostcurve as hc
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -57,55 +57,11 @@ def _inference_mode():
         yield
 
 
-# --- python-int oracle (RFC 9380 6.6.2 and the 3-isogeny of E.1) ---------
-
-def _inv0(x):
-    return pow(x, P - 2, P)
-
-
-def _sqrt(x):
-    """A square root of x, or None."""
-    r = pow(x, (P + 1) // 4, P)
-    return r if r * r % P == x % P else None
-
-
-def oracle_sswu(u):
-    """(x', y') on E' for u."""
-    a, b, z = swu.A_PRIME, swu.B_PRIME, swu.Z
-    tv1 = _inv0((z * z * pow(u, 4, P) + z * u * u) % P)
-    x1 = (-b) * _inv0(a) * (1 + tv1) % P
-    if tv1 == 0:
-        x1 = b * _inv0(z * a) % P
-    gx1 = (x1 ** 3 + a * x1 + b) % P
-    x2 = z * u * u * x1 % P
-    gx2 = (x2 ** 3 + a * x2 + b) % P
-    y1 = _sqrt(gx1)
-    x, y = (x1, y1) if y1 is not None else (x2, _sqrt(gx2))
-    if u % 2 != y % 2:
-        y = -y % P
-    return x, y
-
-
-def oracle_iso(x, y):
-    """The 3-isogeny of (x, y); None (the identity) where a denominator
-    is 0."""
-    x_num = (swu.K13 * x ** 3 + swu.K12 * x * x + swu.K11 * x + swu.K10) % P
-    x_den = (x * x + swu.K21 * x + swu.K20) % P
-    y_num = (swu.K33 * x ** 3 + swu.K32 * x * x + swu.K31 * x + swu.K30) % P
-    y_den = (x ** 3 + swu.K42 * x * x + swu.K41 * x + swu.K40) % P
-    if x_den == 0 or y_den == 0:
-        return None
-    return x_num * _inv0(x_den) % P, y * y_num * _inv0(y_den) % P
-
-
-def oracle_point(uniform48: bytes):
-    return oracle_iso(*oracle_sswu(int.from_bytes(uniform48, "big") % P))
-
-
 def _points(planes, n):
     """Projective planes -> affine int pairs (None for Z = 0)."""
     xs, ys, zs = (lb.limbs_to_int_batch(c[:, :n]) for c in planes)
-    return [None if z == 0 else (x * _inv0(z) % P, y * _inv0(z) % P)
+    return [None if z == 0 else (x * oracle.inv0(z) % P,
+                                 y * oracle.inv0(z) % P)
             for x, y, z in zip(xs, ys, zs)]
 
 
@@ -134,14 +90,10 @@ def test_suite_vectors(suite):
                      for i in range(5)])
     pts, ident = arrays(msgs, dst, device=CPU)
     assert pts.shape == (5, 64) and not ident.any()
-    n_out = 96 if suite == "RO" else 48
     for i, m in enumerate(msgs):
-        uniform = jh2c.expand_message_xmd(m.tobytes(), dst, n_out)
-        w = oracle_point(uniform[:48])
-        if suite == "RO":
-            w = hc.add(w, oracle_point(uniform[48:]))
         assert (int.from_bytes(pts[i, :32].tobytes(), "big"),
-                int.from_bytes(pts[i, 32:].tobytes(), "big")) == w
+                int.from_bytes(pts[i, 32:].tobytes(), "big")) == \
+            oracle.point(m.tobytes(), dst, suite == "RO")
 
 
 # --- expand_message_xmd --------------------------------------------------
@@ -230,11 +182,11 @@ def test_map_edge_lanes_match_the_python_oracle():
     planes = bt.byte_plane(uniform, 16, device=CPU)
     u = fe.from_wide_bytes(planes)
     xp, yp = swu.map_to_curve_simple_swu(u)
-    want = [oracle_sswu(int.from_bytes(s, "big") % P) for s in uniform]
+    want = [oracle.sswu(int.from_bytes(s, "big") % P) for s in uniform]
     assert list(zip(lb.limbs_to_int_batch(xp),
                     lb.limbs_to_int_batch(yp))) == want
     got = swu.set_uniform_bytes(planes)
-    want = [oracle_iso(*w) for w in want]
+    want = [oracle.iso(*w) for w in want]
     assert _points(got, 16) == want
     assert lb.limbs_to_int_batch(got.z) == [0 if w is None else 1
                                             for w in want]
@@ -250,7 +202,7 @@ def test_iso_map_zero_denominators_give_the_identity():
     x = bt.plane(xs, 8, device=CPU)
     y = bt.plane(ys, 8, device=CPU)
     xo, yo, ok = swu.iso_map(x, y)
-    want = [oracle_iso(a, b) for a, b in zip(xs, ys)]
+    want = [oracle.iso(a, b) for a, b in zip(xs, ys)]
     assert ok.tolist() == [w is not None for w in want]
     assert not ok[0]
     for i, w in enumerate(want):

@@ -185,6 +185,16 @@ def test_taproot_references_import_nothing_of_the_program():
                             "secp256k1_tpu_torch", "torch"}, (rel, names)
 
 
+def test_h2c_reference_imports_nothing_of_the_program():
+    """The benchmark's plain RFC 9380 reference stands apart from what it
+    checks: neither JAX, the JAX package, the port, the tests nor torch."""
+    rel = "benchmark/reference/h2c.py"
+    names = _imports(os.path.join(REPO, rel))
+    assert "hashlib" in names and "numpy" in names, names
+    assert not names & {"jax", "jaxlib", "secp256k1_tpu",
+                        "secp256k1_tpu_torch", "torch", "tests"}, names
+
+
 def test_flagship_step_and_sharding_entry_points_raise_without_a_gpu():
     """The flagship step and the sharding's process group."""
     _need_no_gpu()
