@@ -68,6 +68,12 @@ the run with a non-zero exit code:
    runs on its host) with 32-byte messages against the native tagged hash
    and its plain version at 65,536 and 16,384 lanes, timed at both, and
    at every message length of BIP340_LENGTHS against the native hash;
+   the expansion kernel `k_expand_xmd` (RFC 9380's expand_message_xmd,
+   which the JAX package runs on its host) on the benchmark's `h2c.ro`
+   mix of message lengths at 65,536 lanes against the host expansion and
+   its plain version, timed, for 96 and 48 bytes out, and against its
+   plain version at every length 0-600 under a 255-byte DST and an
+   oversize one and at a ragged count;
 4. paths (65,536 lanes), each with the launch counts set to 0 just before
    it and read just after, failing if a kernel of that path was not
    launched, a plain version was called or `mod_pow2k` was launched (the
@@ -132,8 +138,9 @@ the run with a non-zero exit code:
    2^22 points and the bucket kernel's share of the 2^20 call; ECDH/s end
    to end and of `_ecdh_e2e_core` under each GLV engine; the verify and
    sign cores under each fixed-base switch;
-   h2c/s end to end, of `expand_message_xmd_batch` alone and of the
-   `_ro_bytes_core` and `_nu_bytes_core` device cores; consensus verify
+   h2c/s end to end, of the host expansion `expand_message_xmd_batch`
+   alone and of the `_ro_bytes_core` and `_nu_bytes_core` device cores
+   (the expansion kernel first); consensus verify
    end to end beside `verify_batch_arrays`; with `--profile`, the device
    time by kernel and the idle share of one `_verify_impl`, one
    `_sign_e2e_core`, one `_ecdh_e2e_core`, one `_ro_bytes_core`, one
@@ -230,12 +237,13 @@ KERNEL_META = {
     # the fold 256 point_double (and 64 point_add) one-lane calls at w = 4.
     "mod_pow_chain": (f"{CSRC}/modops.cu", f"{PALLAS}:784"),
     "msm_fold": (f"{CSRC}/msm.cu", f"{PALLAS}:1380"),
-    # RFC 6979's DRBG and BIP-0340's challenge hash, which the JAX package
-    # runs on its host.
+    # RFC 6979's DRBG, BIP-0340's challenge hash and RFC 9380's
+    # expand_message_xmd, which the JAX package runs on its host.
     "rfc6979_nonce": (f"{CSRC}/drbg.cu",
                       "none (secp256k1_tpu/native/hostcrypto.cpp)"),
     "bip340_challenge": (f"{CSRC}/bip340.cu",
                          "none (secp256k1_tpu/models/schnorr.py)"),
+    "expand_xmd": (f"{CSRC}/xmd.cu", "none (secp256k1_tpu/models/h2c.py)"),
 }
 # The __global__ function each wrapper launches (its profiler row).
 KERNEL_SYMBOL = {
@@ -257,6 +265,7 @@ KERNEL_SYMBOL = {
     "msm_fold": "k_msm_fold",
     "rfc6979_nonce": "k_rfc6979",
     "bip340_challenge": "k_bip340_challenge",
+    "expand_xmd": "k_expand_xmd",
 }
 # The kernels each path must launch.  mod_square is launched where a path
 # takes a square root (SEC1 decompression, recovery, lift_x).
@@ -275,9 +284,11 @@ SCHNORR_VERIFY_KERNELS = VERIFY_KERNELS + ("bip340_challenge",)
 POINT_KERNELS = ("point_add", "point_double")
 MSM_KERNELS = ("msm_bucket_accumulate_all", "point_add", "msm_fold")
 SCAN_KERNELS = ("point_add", "msm_fold")
-# Hash-to-curve: the map's products, squares and chains; the RO suite's add.
+# Hash-to-curve: the map's products, squares and chains; the RO suite's add;
+# the arrays forms expand on the card first.
 H2C_NU_KERNELS = SQRT_KERNELS
 H2C_RO_KERNELS = SQRT_KERNELS + ("point_add",)
+H2C_ARRAYS_KERNELS = ("expand_xmd",)
 # ECDH under each GLV engine, and verify and sign under each fixed-base
 # switch: (label, switch setter arguments, kernels the path must launch).
 ECDH_ENGINES = (
@@ -350,6 +361,17 @@ BIP340_TIMED_WIDTHS = (LANES, 16384)
 BIP340_LENGTHS = (0, 1, 55, 56, 64, 100)
 BIP340_LENGTH_LANES = 4096
 BIP340_SEED = SEED + 18
+# The expansion kernel: timed on the benchmark's `h2c.ro` mix (lengths 0 to
+# XMD_MAX_LEN evenly, one lane in XMD_LONG_EVERY of XMD_LONG_LEN bytes, rows
+# XMD_LONG_LEN wide) under the suite's DST, for both suites' n_out; checked
+# at every length up to XMD_EDGE_LEN (XMD_EDGE_REPEAT messages a length)
+# under a 255-byte DST and an oversize one, and with XMD_RAGGED padded
+# lanes; on data of its own seed.
+XMD_DST = b"QUUX-V01-CS02-with-secp256k1_XMD:SHA-256_SSWU_RO_"
+XMD_EDGE_DSTS = (bytes(range(1, 256)), b"x" * 300)
+XMD_MAX_LEN, XMD_LONG_LEN, XMD_LONG_EVERY = 128, 517, 64
+XMD_EDGE_LEN, XMD_EDGE_REPEAT, XMD_RAGGED = 600, 4, 5
+XMD_SEED = SEED + 19
 WALLET_SAMPLED_LANES = 64
 GLV_ROUNDS = 3                  # --glv: rounds of each GLV kernel's times
 PROFILE_ATTEMPTS = 5
@@ -1104,6 +1126,85 @@ def bip340_checks(int_rate, res, device):
                 for w in (32, 32, length)]
         native_check(rows, [bt.byte_plane_np(r, lanes, device)
                             for r in rows], lanes, length)
+
+
+def xmd_mix(rng, n):
+    """Rows [n, XMD_LONG_LEN] and lengths of the `h2c.ro` mix, the bytes
+    past each length zero as the benchmark pads them."""
+    lens = rng.integers(0, XMD_MAX_LEN + 1, n).astype(np.int32)
+    lens[rng.choice(n, n // XMD_LONG_EVERY, replace=False)] = XMD_LONG_LEN
+    rows = rng.integers(0, 256, (n, XMD_LONG_LEN), dtype=np.uint8)
+    rows[np.arange(XMD_LONG_LEN) >= lens[:, None]] = 0
+    return rows, lens
+
+
+def xmd_checks(int_rate, res, device):
+    """The expansion kernel `k_expand_xmd` (`expand_xmd`): on LANES lanes
+    of the `h2c.ro` mix for n_out 96 and 48, every lane against the host
+    expansion (`h2c.expand_message_xmd_batch`, the native SHA-256) and
+    bit-exact against its plain version, timed (profiler, cold L2) beside
+    its bound of 32-bit integer operations (`profiling.SHA256_BLOCK_OPS`
+    a compression, the mix's own compressions); at every length up to
+    XMD_EDGE_LEN under each of XMD_EDGE_DSTS, and with XMD_RAGGED padded
+    lanes, against its plain version.  Its data come from a generator of
+    its own."""
+    from secp256k1_tpu_torch.models import h2c
+    from secp256k1_tpu_torch.ops.cuda import kernels as K
+    from secp256k1_tpu_torch.utils.profiling import (SHA256_BLOCK_OPS,
+                                                     xmd_blocks)
+    name = "expand_xmd"
+    rng = np.random.default_rng(XMD_SEED)
+
+    def on_card(rows, lens):
+        return (torch.from_numpy(rows).to(device),
+                torch.from_numpy(lens).to(device))
+
+    def dst_prime(dst):
+        dst, _ = h2c._dst_and_ell(dst, 96)
+        return dst + bytes([len(dst)])
+
+    rows, lens = xmd_mix(rng, LANES)
+    planes = on_card(rows, lens)
+    dp = dst_prime(XMD_DST)
+    for n_out in (96, 48):
+        args = (*planes, dp, n_out, LANES)
+        got = K.expand_xmd(*args)
+        strings = got.reshape(48, n_out // 48, LANES).permute(2, 1, 0) \
+            .reshape(LANES, n_out).cpu().numpy()
+        want = h2c.expand_message_xmd_batch(rows, XMD_DST, n_out, lens)
+        wrong = int((strings != want).any(axis=1).sum())
+        if wrong:
+            fail(f"kernel {name} n_out {n_out}: {wrong} of {LANES} lanes "
+                 f"differ from the host expansion")
+        say(f"kernel {name} n_out {n_out}: all {LANES} lanes of the h2c.ro "
+            f"mix equal the host expansion")
+        blocks = sum(xmd_blocks(int(n), len(dp), n_out) for n in lens)
+        timed_check(int_rate, res, name,
+                    f"{name} n_out {n_out} at {LANES} lanes of the h2c.ro "
+                    f"mix ({blocks / LANES:.4f} compressions a lane)",
+                    max_abs_err([got], [K.expand_xmd_plain(*args)]),
+                    lambda: K.expand_xmd(*args),
+                    lambda: K.expand_xmd_plain(*args), 20, 1,
+                    blocks * SHA256_BLOCK_OPS,
+                    int(lens.sum()) + 4 * LANES + n_out * LANES, lanes=LANES)
+    lens = np.repeat(np.arange(XMD_EDGE_LEN + 1, dtype=np.int32),
+                     XMD_EDGE_REPEAT)
+    rows = rng.integers(1, 256, (lens.size, XMD_EDGE_LEN + 40),
+                        dtype=np.uint8)
+    for dst in XMD_EDGE_DSTS:
+        args = (*on_card(rows, lens), dst_prime(dst), 96, lens.size)
+        err = max_abs_err([K.expand_xmd(*args)], [K.expand_xmd_plain(*args)])
+        if err:
+            fail(f"kernel {name} at every length to {XMD_EDGE_LEN} under a "
+                 f"{len(dst)}-byte DST differs from its plain version")
+    n = LANES - XMD_RAGGED
+    args = (*on_card(*xmd_mix(rng, n)), dp, 96, LANES)
+    if max_abs_err([K.expand_xmd(*args)], [K.expand_xmd_plain(*args)]):
+        fail(f"kernel {name} with {XMD_RAGGED} padded lanes differs from its "
+             f"plain version")
+    say(f"kernel {name}: every length 0-{XMD_EDGE_LEN} under DSTs of "
+        f"{[len(d) for d in XMD_EDGE_DSTS]} bytes and {n} messages in "
+        f"{LANES} lanes equal its plain version")
 
 
 def chain_work(e, modulus, lanes):
@@ -2607,9 +2708,11 @@ def h2c_paths(batch, hc, rng):
             f"file's P, {len(picks)} sampled lanes equal python ints, no "
             f"identity")
         label = f"hash-to-curve {suite} ({LANES} messages, arrays)"
+        kernels += H2C_ARRAYS_KERNELS
         pts, ident = run_path(label, kernels,
                               lambda: arrays(batch.msgs, dst),
-                              replay=kernels, expect={"mod_pow_chain": 5})
+                              replay=kernels, expect={"mod_pow_chain": 5,
+                                                      "expand_xmd": 1})
         if pts.shape != (LANES, 64) or ident.any():
             fail(f"path {label}: shape {pts.shape}, {int(ident.sum())} "
                  f"identity lanes")
@@ -2861,13 +2964,13 @@ def service_paths(requests, device):
 
 
 def slice_throughput(batch, consensus, arrays, device):
-    """Hash-to-curve end to end (median of 5), its expand alone (median of
-    5) and its device cores from byte planes (CUDA events, median of 7),
-    with the launches a call makes by kernel; consensus verify end to end
-    beside verify_batch_arrays (median of 5 each, in turns).  Returns the
-    cores' byte planes."""
+    """Hash-to-curve end to end (median of 5), the host expansion the
+    cores replaced (the kernel's plain version, median of 5) and its
+    device cores from rows and lengths on the card (CUDA events, median
+    of 7), with the launches a call makes by kernel; consensus verify end
+    to end beside verify_batch_arrays (median of 5 each, in turns).
+    Returns the cores' arguments."""
     from secp256k1_tpu_torch.models import bitcoin, ecdsa, h2c
-    from secp256k1_tpu_torch.utils import batching as bt
 
     def rate(ms):
         return LANES / ms * 1e3
@@ -2880,19 +2983,20 @@ def slice_throughput(batch, consensus, arrays, device):
         e2e = wall_ms(lambda: arrays_fn(batch.msgs, dst), 5)
         expand = wall_ms(lambda: h2c.expand_message_xmd_batch(
             batch.msgs, dst, n_out), 5)
-        uniform = h2c.expand_message_xmd_batch(batch.msgs, dst, n_out)
-        planes[suite] = [bt.byte_plane_np(np.ascontiguousarray(
-            uniform[:, lo:lo + 48]), LANES, device)
-            for lo in range(0, n_out, 48)]
+        planes[suite] = (
+            torch.from_numpy(batch.msgs).to(device),
+            torch.full((LANES,), batch.msgs.shape[1], dtype=torch.int32,
+                       device=device), dst + bytes([len(dst)]), LANES)
         med = median_cuda_ms(lambda: core(*planes[suite]))
         launches = PATH_LAUNCHES[
             f"hash-to-curve {suite} ({LANES} messages, arrays)"]
         say(f"throughput: hash-to-curve {suite} arrays end to end "
             f"{e2e[0]:.1f} ms (median of 5, range {e2e[1]:.1f}-{e2e[2]:.1f})"
             f" at {LANES} messages = {rate(e2e[0]):.1f} h2c/s; "
-            f"expand_message_xmd_batch alone {expand[0]:.1f} ms (median of "
-            f"5, range {expand[1]:.1f}-{expand[2]:.1f}); {core.__name__} "
-            f"from byte planes {med[0]:.3f} ms (median of 7, range "
+            f"the host expansion (expand_message_xmd_batch) alone "
+            f"{expand[0]:.1f} ms (median of 5, range {expand[1]:.1f}-"
+            f"{expand[2]:.1f}); {core.__name__} (its expansion on the card "
+            f"included) from rows {med[0]:.3f} ms (median of 7, range "
             f"{med[1]:.3f}-{med[2]:.3f}) = {rate(med[0]):.1f} h2c/s; "
             f"launches a call {({k: v for k, v in launches.items() if v})}")
     walls = {"verify_asn1_batch_arrays": [], "verify_batch_arrays": []}
@@ -3505,6 +3609,7 @@ def main():
     res = kernel_checks(int_rate, curve, rng, device)
     drbg_checks(int_rate, res, device)
     bip340_checks(int_rate, res, device)
+    xmd_checks(int_rate, res, device)
     phase("kernels")
     engine_kernel_checks(int_rate, curve, rng, device, res)
     phase("engine kernels")
@@ -3559,6 +3664,10 @@ def main():
         profile_core(f"_ecdh_e2e_core at {LANES} lanes",
                      lambda: ecdh._ecdh_e2e_core(*ecdh_planes),
                      [KERNEL_SYMBOL[name] for name in ECDH_ENGINES[0][2]])
+        # The map's kernels only: this late in a run the profiler lost
+        # `k_expand_xmd`, the cores' first launch, from five sessions of
+        # five, as it loses `k_rfc6979` from the sign core's; the kernel
+        # phase times it.
         from secp256k1_tpu_torch.models import h2c
         profile_core(f"_ro_bytes_core at {LANES} lanes",
                      lambda: h2c._ro_bytes_core(*h2c_planes["RO"]),

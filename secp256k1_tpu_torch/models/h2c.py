@@ -2,16 +2,19 @@
 
 The port of `secp256k1_tpu.models.h2c`: suites
 `secp256k1_XMD:SHA-256_SSWU_RO_` and `_NU_` over `expand_message_xmd`
-(SHA-256 on the host, with the oversize-DST reduction and the edge-case
-rejections), the SWU map and the point addition on the device.
+(SHA-256, with the oversize-DST reduction and the edge-case rejections on
+the host), the SWU map and the point addition on the device.
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; `device="cpu"` runs the plain path.  The random-oracle suite runs
 its two maps as one map over both halves of the batch side by side (twice
 the width, half the launches); every lane's value is the one of two maps.
 The arrays entry points take messages of varying length as zero-padded rows
-and their lengths.  `expand_message_xmd_batch` hashes with the native
-library and raises where it does not build: there is no per-lane fallback.
+and their lengths; their cores expand on the device first
+(`kernels.expand_xmd`, whose plain version is `expand_message_xmd_batch`).
+The list entry points expand each message on the host.
+`expand_message_xmd_batch` hashes with the native library and raises where
+it does not build: there is no per-lane fallback.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .. import native
 from ..ops import field as fe
 from ..ops import point as pt
 from ..ops import swu
+from ..ops.cuda import kernels as K
 from ..utils import batching as bt
 
 _H_OUT = 32   # SHA-256 output
@@ -68,6 +72,9 @@ def expand_message_xmd(msg: bytes, dst: bytes, n_out: int) -> bytes:
 # the native hashing counts them ("blocks"), and the messages it expanded
 # ("messages").
 XMD_HOST_BLOCKS = {"blocks": 0, "messages": 0}
+# The messages of the arrays entry points expanded by the kernel
+# ("device": CUDA tensors) and by its plain version ("host": the CPU).
+XMD_LANES = {"device": 0, "host": 0}
 
 
 def expand_message_xmd_batch(msgs: np.ndarray, dst: bytes, n_out: int,
@@ -97,11 +104,11 @@ def expand_message_xmd_batch(msgs: np.ndarray, dst: bytes, n_out: int,
     return np.concatenate(blocks, axis=1)[:, :n_out]
 
 
-def _ro_point(u0_bytes, u1_bytes):
-    """Both maps as one over [48, 2B] (u0's lanes, then u1's), then the
+def _ro_point(u):
+    """Both maps as one over u [48, 2B] (u0's lanes, then u1's), then the
     complete add of the two halves."""
-    b = u0_bytes.shape[1]
-    q = swu.set_uniform_bytes(torch.cat([u0_bytes, u1_bytes], 1))
+    b = u.shape[1] // 2
+    q = swu.set_uniform_bytes(u)
     return pt.add(*(pt.Point(*(c[:, i * b:(i + 1) * b] for c in q))
                     for i in range(2)))
 
@@ -109,7 +116,7 @@ def _ro_point(u0_bytes, u1_bytes):
 def _ro_core(u0_bytes, u1_bytes):
     """Two SWU maps and a complete add: affine (x, y) planes and the
     identity mask."""
-    p = _ro_point(u0_bytes, u1_bytes)
+    p = _ro_point(torch.cat([u0_bytes, u1_bytes], 1))
     aff = pt.to_affine(p)
     return aff.x, aff.y, pt.is_identity(p)
 
@@ -155,31 +162,43 @@ def encode_to_curve_batch(msgs, dst: bytes, device=None):
     return _from_planes(x, y, ident, n)
 
 
-def _ro_bytes_core(u0_bytes, u1_bytes):
-    p = _ro_point(u0_bytes, u1_bytes)
+def _affine_bytes(p):
+    """Affine x and y as [32, B] big-endian byte planes, and the identity
+    mask."""
     aff = pt.to_affine(p)
     return fe.to_bytes(aff.x), fe.to_bytes(aff.y), pt.is_identity(p)
 
 
-def _nu_bytes_core(u_bytes):
-    q = swu.set_uniform_bytes(u_bytes)
-    aff = pt.to_affine(q)
-    return fe.to_bytes(aff.x), fe.to_bytes(aff.y), pt.is_identity(q)
+def _ro_bytes_core(rows, lens, dst_prime: bytes, lanes: int):
+    """The random-oracle suite's device work of an arrays call: the
+    expansion of every message (rows [n, W] u8, lens [n] int32, DST') to
+    the [48, 2 lanes] plane of u0 and u1, both maps, the add, the affine
+    bytes."""
+    return _affine_bytes(_ro_point(K.expand_xmd(rows, lens, dst_prime, 96,
+                                                lanes)))
+
+
+def _nu_bytes_core(rows, lens, dst_prime: bytes, lanes: int):
+    """The non-uniform suite's: the expansion to [48, lanes], one map."""
+    return _affine_bytes(swu.set_uniform_bytes(
+        K.expand_xmd(rows, lens, dst_prime, 48, lanes)))
 
 
 def _h2c_arrays(msgs: np.ndarray, dst: bytes, random_oracle: bool, lens,
                 device):
     device = bt.resolve_device(device)
-    n = msgs.shape[0]
-    b = bt.bucket(n)
-    if random_oracle:
-        uniform = expand_message_xmd_batch(msgs, dst, 96, lens)
-        xb, yb, ident = _ro_bytes_core(
-            bt.byte_plane_np(np.ascontiguousarray(uniform[:, :48]), b, device),
-            bt.byte_plane_np(np.ascontiguousarray(uniform[:, 48:]), b, device))
-    else:
-        uniform = expand_message_xmd_batch(msgs, dst, 48, lens)
-        xb, yb, ident = _nu_bytes_core(bt.byte_plane_np(uniform, b, device))
+    msgs = np.ascontiguousarray(msgs, dtype=np.uint8)
+    if msgs.ndim != 2 or not msgs.shape[0]:
+        raise ValueError(f"expected [n >= 1, L] uint8 rows, got {msgs.shape}")
+    n, width = msgs.shape
+    lens = np.full(n, width, np.int32) if lens is None \
+        else native.lane_lengths(lens, n, width)
+    dst, _ = _dst_and_ell(dst, 96 if random_oracle else 48)
+    XMD_LANES["device" if device.type == "cuda" else "host"] += n
+    core = _ro_bytes_core if random_oracle else _nu_bytes_core
+    xb, yb, ident = core(torch.from_numpy(msgs).to(device),
+                         torch.from_numpy(lens).to(device),
+                         dst + bytes([len(dst)]), bt.bucket(n))
     xs = xb[:, :n].cpu().numpy().astype(np.uint8).T
     ys = yb[:, :n].cpu().numpy().astype(np.uint8).T
     return np.concatenate([xs, ys], axis=1), ident[:n].cpu().numpy()
@@ -190,9 +209,10 @@ def hash_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, lens=None,
     """secp256k1_XMD:SHA-256_SSWU_RO_ on numpy arrays.  msgs: [n, L] u8
     zero-padded rows, row i the message of its first lens[i] bytes (lens
     [n] integers in [0, L]; None: every row whole, of length L).  The
-    host runs 1 + ell batched native SHA-256 calls; both maps and the add
-    run on the device.  Returns (points [n, 64] u8 affine x || y,
-    is_identity [n] bool); raises ValueError on a bad lens."""
+    host checks the lengths and uploads rows and lengths once; the
+    expansion, both maps and the add run on the device.  Returns (points
+    [n, 64] u8 affine x || y, is_identity [n] bool); raises ValueError on a
+    bad lens or no rows."""
     return _h2c_arrays(msgs, dst, True, lens, device)
 
 

@@ -23,16 +23,18 @@ Two more wrappers run a chain of those kernels' work in one launch, where
 the JAX package runs the chain of `pallas_call`s inside one compiled
 program: `mod_pow_chain` (x^e for a public constant e: the chains of
 `ModRing.pow_const_chain`, of which `mod_pow2k` is the one-step case) and
-`msm_fold` (the Horner fold of `msm.combine_windows`).  Two replace no TPU
-kernel, since the JAX package runs what they compute on its host:
-`rfc6979_nonce`, RFC 6979's DRBG, and `bip340_challenge`, BIP-0340's
-challenge hash.
+`msm_fold` (the Horner fold of `msm.combine_windows`).  Three replace no
+TPU kernel, since the JAX package runs what they compute on its host:
+`rfc6979_nonce`, RFC 6979's DRBG, `bip340_challenge`, BIP-0340's
+challenge hash, and `expand_xmd`, RFC 9380's expand_message_xmd.
 
 Planes are int32 [16, B] tensors of 16-bit limbs (limb-major, so adjacent
 CUDA threads read adjacent lanes), canonical (< modulus) in and out.
 Digit planes are int32 [W, B]; per-lane point tables int32 [15, 3, 16, B];
 the byte planes of the DRBG and the challenge hash uint8 [32, B] (row j
-byte j of each lane's big-endian value; a message of L bytes [L, B]).
+byte j of each lane's big-endian value; a message of L bytes [L, B]);
+`expand_xmd` reads messages as rows [n, W] uint8 with lengths [n] and
+writes uint8 [48, k B] planes.
 
 The switches `mega_enabled`/`set_mega` and
 `mega_signed_enabled`/`set_mega_signed` are the JAX package's own
@@ -46,9 +48,11 @@ import ctypes
 import functools
 import os
 
+import numpy as np
 import torch
 
 from ... import native
+from ...utils import batching as bt
 from .. import limbs as lb
 from . import build
 
@@ -62,13 +66,13 @@ KERNELS = ("mod_mul", "mod_square", "mod_pow2k",
            "msm_bucket_accumulate_all", "glv_windowed_mult", "point_add",
            "point_double", "point_double4", "point_add_mixed",
            "point_lookup_add", "mod_pow_chain", "msm_fold", "rfc6979_nonce",
-           "bip340_challenge")
+           "bip340_challenge", "expand_xmd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 # Launches by (kernel, lanes, detail): detail the exponent of mod_pow_chain,
 # k of mod_pow2k, the window bits of msm_fold (lanes: its windows), the
-# attempt of rfc6979_nonce, the message length of bip340_challenge, else
-# None.
+# attempt of rfc6979_nonce, the message length of bip340_challenge, the
+# row width of expand_xmd, else None.
 SHAPES: dict = {}
 
 
@@ -690,6 +694,28 @@ def bip340_challenge_plain(r_plane, px_plane, m_plane):
     return torch.from_numpy(out.T.copy()).to(r_plane.device)
 
 
+# The bytes of one field element's uniform string in the hash-to-curve
+# suites (RFC 9380's L for secp256k1): the rows of `expand_xmd`'s planes.
+XMD_PART = 48
+
+
+def expand_xmd_plain(rows, lens, dst_prime: bytes, n_out: int, lanes: int):
+    """RFC 9380 expand_message_xmd with SHA-256 of each lane's message, as
+    byte planes: the function of `csrc/xmd.cu` `k_expand_xmd`, by the host
+    path `h2c.expand_message_xmd_batch` (one native SHA-256 call a stage,
+    counted in `h2c.XMD_HOST_BLOCKS`).  rows: uint8 [n, W], lane i's
+    message the first lens[i] bytes of row i; lens: int32 [n]; dst_prime:
+    DST' = DST || I2OSP(len(DST), 1).  Returns uint8 [48, n_out // 48 *
+    lanes] on the rows' device: byte j of lane i's string at row j % 48,
+    column (j // 48) lanes + i; lanes past n repeat lane n - 1."""
+    from ...models import h2c
+    uniform = h2c.expand_message_xmd_batch(
+        rows.cpu().numpy(), dst_prime[:-1], n_out, lens.cpu().numpy())
+    return torch.cat([bt.byte_plane_np(np.ascontiguousarray(
+        uniform[:, lo:lo + XMD_PART]), lanes, rows.device)
+        for lo in range(0, n_out, XMD_PART)], 1)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -1098,4 +1124,44 @@ def bip340_challenge(r_plane, px_plane, m_plane):
         _launch(name, "bip340", "bip340_challenge",
                 [r_plane, px_plane, m_plane, out], [lanes, length],
                 (lanes, length))
+    return out
+
+
+def expand_xmd(rows, lens, dst_prime: bytes, n_out: int, lanes: int):
+    """Each lane's RFC 9380 expand_message_xmd (see `expand_xmd_plain` for
+    the function and the layout), one launch of `k_expand_xmd`
+    (`csrc/xmd.cu`, one thread a lane): rows uint8 [n, W] and lens int32
+    [n], 1 <= n <= lanes, lengths in [0, W] (the caller checks them; the
+    kernel clamps); dst_prime 2 to 256 bytes ending in its DST's length;
+    n_out a multiple of 48 up to 8,160.  Returns uint8 [48, n_out // 48 *
+    lanes].  Replaces no TPU kernel: the JAX package expands on its
+    host."""
+    name = "expand_xmd"
+    on_cpu = _on_cpu(rows, lens)
+    if rows.dtype != torch.uint8 or rows.dim() != 2 \
+            or not rows.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous uint8 [n, W] rows, "
+                         f"got {rows.dtype} {tuple(rows.shape)}")
+    n, width = rows.shape
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (n,) \
+            or not lens.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous int32 [{n}] lengths, "
+                         f"got {lens.dtype} {tuple(lens.shape)}")
+    if not 1 <= n <= lanes:
+        raise ValueError(f"{name}: {n} messages for {lanes} lanes")
+    if not 2 <= len(dst_prime) <= 256 \
+            or dst_prime[-1] != len(dst_prime) - 1:
+        raise ValueError(f"{name}: DST' must be 2 to 256 bytes, its last "
+                         f"the DST's length")
+    if n_out % XMD_PART or not XMD_PART <= n_out <= 255 * 32:
+        raise ValueError(f"{name}: n_out must be a multiple of {XMD_PART} "
+                         f"up to {255 * 32}, got {n_out}")
+    if on_cpu:
+        PLAIN_CALLS[name] += 1
+        return expand_xmd_plain(rows, lens, dst_prime, n_out, lanes)
+    out = torch.empty((XMD_PART, n_out // XMD_PART * lanes),
+                      dtype=torch.uint8, device=rows.device)
+    dst = torch.frombuffer(bytearray(dst_prime), dtype=torch.uint8)
+    _launch(name, "xmd", "expand_xmd", [rows, lens, dst, out],
+            [len(dst_prime), n, width, lanes, n_out], (lanes, width))
     return out

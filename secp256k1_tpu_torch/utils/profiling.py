@@ -64,6 +64,17 @@ def bip340_blocks(length: int) -> int:
     return 1 + (length + 9 + 63) // 64
 
 
+def xmd_blocks(length: int, dst_prime_len: int, n_out: int) -> int:
+    """SHA-256 compressions of one lane of `kernels.expand_xmd` with an
+    L-byte message under an |DST'|-byte DST': b0 after the constant Z_pad
+    midstate, the message and I2OSP(n_out, 2) || 0x00 || DST' with the
+    padding; then each of the ell b_i, 33 + |DST'| bytes with the
+    padding."""
+    ell = (n_out + 31) // 32
+    return (length + 3 + dst_prime_len + 9 + 63) // 64 \
+        + ell * ((33 + dst_prime_len + 9 + 63) // 64)
+
+
 TRACE_FILE = "trace.json"
 
 

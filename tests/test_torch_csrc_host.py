@@ -44,6 +44,7 @@ HARNESS = r"""
 #include "glv.cuh"
 #include "modops.cuh"
 #include "msm.cuh"
+#include "xmd.cu"
 
 template <class M>
 static void field_op(int op, const u32* a, const u32* b, u32* out, int n) {
@@ -262,6 +263,27 @@ extern "C" void bip340_lanes(const uint8_t* r, const uint8_t* px,
 extern "C" void bip340_midstate(u32* out) {
   for (int i = 0; i < 8; ++i) out[i] = kChallengeMid[i];
 }
+
+// k_expand_xmd lane by lane over rows [n, width] and lens [n]: the planes
+// [48, (n_out / 48) lanes], lanes past n repeating lane n - 1.
+extern "C" void xmd_lanes(const uint8_t* rows, const int* lens, int n,
+                          int width, int lanes, const uint8_t* dst_prime,
+                          int dst_len, int n_out, uint8_t* out) {
+  uint8_t tail[kXmdMaxTail];
+  for (int t = 0; t < 3 + dst_len; ++t)
+    tail[t] = xmd_tail_byte(dst_prime, n_out, t);
+  for (int lane = 0; lane < lanes; ++lane) {
+    const int src = lane < n ? lane : n - 1;
+    expand_xmd_lane(rows + (size_t)src * width, lens[src], tail, dst_len,
+                    n_out, out + lane, lanes,
+                    (size_t)(n_out / kXmdPart) * lanes);
+  }
+}
+
+// The kernel's Z_pad midstate.
+extern "C" void xmd_midstate(u32* out) {
+  for (int i = 0; i < 8; ++i) out[i] = kZpadMid[i];
+}
 """
 
 FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3, "neg": 4, "mulw21": 5}
@@ -273,7 +295,7 @@ def host_lib():
     """The harness built with g++ into build/, keyed by the sources."""
     h = hashlib.sha256(HARNESS.encode())
     for name in ("field.cuh", "point.cuh", "msm.cuh", "glv.cuh", "base.cuh",
-                 "modops.cuh", "drbg.cuh", "bip340.cu"):
+                 "modops.cuh", "drbg.cuh", "bip340.cu", "xmd.cu"):
         with open(os.path.join(build.CSRC, name), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(build.BUILD_ROOT, "host_csrc", h.hexdigest()[:16])
@@ -802,3 +824,50 @@ def test_bip340_tag_midstate_is_the_tags_compression(host_lib):
                                   [0x80000000] + [0] * 14 + [64 * 8])
     assert b"".join(w.to_bytes(4, "big") for w in final) == \
         hashlib.sha256(t + t).digest()
+
+
+# The hash-to-curve suites' DST (J.8.1), a 255-byte DST (the longest hashed
+# as it is) and an oversize one, which the host reduces to 32 bytes.
+XMD_DSTS = {"dst49": b"QUUX-V01-CS02-with-secp256k1_XMD:SHA-256_SSWU_RO_",
+            "dst255": bytes(range(1, 256)), "dst300": b"x" * 300}
+
+
+@pytest.mark.parametrize("n_out", [48, 96])
+@pytest.mark.parametrize("dst", sorted(XMD_DSTS))
+def test_expand_xmd_lanes_match_the_jax_expansion(host_lib, dst, n_out):
+    """k_expand_xmd's lane body (xmd.cu) on every length 0-600 (so b0's
+    block edges after the midstate under the suite's DST, lengths 2/3,
+    66/67, 130/131, and 517 among them) in rows 640 bytes wide, the bytes
+    past each length not zero, and 9 padded lanes: each lane's planes
+    against the JAX package's one-message expand_message_xmd, the padded
+    lanes equal to the last message's."""
+    from secp256k1_tpu.models import h2c as jh2c
+    from secp256k1_tpu_torch.models import h2c
+    dst = XMD_DSTS[dst]
+    reduced, _ = h2c._dst_and_ell(dst, n_out)
+    dst_prime = np.frombuffer(reduced + bytes([len(reduced)]), np.uint8)
+    rng = np.random.default_rng(9380 + n_out + len(dst))
+    width, n, lanes = 640, 601, 610
+    rows = rng.integers(1, 256, (n, width), dtype=np.uint8)
+    lens = np.arange(n, dtype=np.int32)
+    parts = n_out // 48
+    out = np.zeros((48, parts * lanes), np.uint8)
+    host_lib.xmd_lanes(_ptr(rows), _ptr(lens), n, width, lanes,
+                       _ptr(dst_prime), dst_prime.size, n_out, _ptr(out))
+    got = out.reshape(48, parts, lanes).transpose(2, 1, 0).reshape(lanes, -1)
+    for i in range(lanes):
+        m = rows[min(i, n - 1), :lens[min(i, n - 1)]].tobytes()
+        assert got[i].tobytes() == jh2c.expand_message_xmd(m, dst, n_out), i
+
+
+def test_xmd_zpad_midstate_is_the_compression_of_zero_bytes(host_lib):
+    """The kernel's constant midstate is the compression of 64 zero bytes
+    from the IV: the plain compression gives it, and its compression of
+    the padding of those 64 bytes is hashlib's digest."""
+    mid = np.zeros(8, np.uint32)
+    host_lib.xmd_midstate(_ptr(mid))
+    assert mid.tolist() == K._sha256_block_plain(list(K._SHA256_IV), [0] * 16)
+    final = K._sha256_block_plain(mid.tolist(),
+                                  [0x80000000] + [0] * 14 + [64 * 8])
+    assert b"".join(w.to_bytes(4, "big") for w in final) == \
+        hashlib.sha256(bytes(64)).digest()

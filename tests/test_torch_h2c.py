@@ -215,8 +215,9 @@ def test_iso_map_zero_denominators_give_the_identity():
 
 @pytest.mark.slow
 def test_cores_match_jax():
-    """`_ro_bytes_core`, `_nu_bytes_core` and `swu.set_uniform_bytes`
-    against the JAX package's on the edge strings and seeded ones."""
+    """The maps of `_ro_bytes_core` and `_nu_bytes_core` (after their
+    expansion) and `swu.set_uniform_bytes` against the JAX package's cores
+    on the edge strings and seeded ones."""
     import jax.numpy as jnp
     from secp256k1_tpu.ops import swu as jswu
     uniform = _edge_uniform()
@@ -224,9 +225,9 @@ def test_cores_match_jax():
     other = rows[::-1].copy()
     port = [bt.byte_plane_np(r, 16, CPU) for r in (rows, other)]
     jax_in = [jnp.asarray(np.ascontiguousarray(r.T)) for r in (rows, other)]
-    for got, want in ((h2c._ro_bytes_core(*port),
+    for got, want in ((h2c._affine_bytes(h2c._ro_point(torch.cat(port, 1))),
                        jh2c._ro_bytes_core(*jax_in)),
-                      (h2c._nu_bytes_core(port[0]),
+                      (h2c._affine_bytes(swu.set_uniform_bytes(port[0])),
                        jh2c._nu_bytes_core(jax_in[0])),
                       (swu.set_uniform_bytes(port[0]),
                        jswu.set_uniform_bytes(jax_in[0]))):

@@ -14,7 +14,13 @@ lengths [n]:
   the python-int oracle of `h2c_oracle.py` over the JAX package's
   expansion;
 - the ValueErrors on a bad `lens`;
-- `h2c.XMD_HOST_BLOCKS` against SHA-256's padding rule.
+- `h2c.XMD_HOST_BLOCKS` against SHA-256's padding rule;
+- the expansion kernel's wrapper `kernels.expand_xmd` on the CPU (its
+  plain version): the [48, 2B] and [48, B] planes of
+  `expand_message_xmd_batch` and `byte_plane_np`, padded lanes included;
+  the cores `_ro_bytes_core` and `_nu_bytes_core` from rows, lengths and
+  DST' against the J.8.1 (J.8.2) vectors; the counts `h2c.XMD_LANES` and
+  `PLAIN_CALLS["expand_xmd"]`; the wrapper's ValueErrors.
 
 Every comparison is exact.
 """
@@ -31,6 +37,8 @@ import h2c_oracle as oracle
 from secp256k1_tpu.models import h2c as jh2c
 from secp256k1_tpu_torch import native
 from secp256k1_tpu_torch.models import h2c
+from secp256k1_tpu_torch.ops.cuda import kernels as K
+from secp256k1_tpu_torch.utils import batching as bt
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -246,3 +254,88 @@ def test_host_blocks_follow_the_padding_rule(dst, n_out):
     assert h2c.XMD_HOST_BLOCKS["blocks"] == before["blocks"] + want + len(
         lengths) * (_blocks(64 + 517 + 3 + dst_prime)
                     + ell * _blocks(33 + dst_prime))
+
+
+# --- the expansion kernel's wrapper on the CPU ----------------------------
+
+def _dst_prime(dst):
+    return dst + bytes([len(dst)])
+
+
+@pytest.mark.parametrize("n_out", [48, 96])
+def test_expand_xmd_plain_gives_the_host_planes(n_out):
+    """`K.expand_xmd` on CPU tensors: the planes of
+    `expand_message_xmd_batch` through `byte_plane_np`, u0's lanes then
+    u1's for 96 bytes; the 11 lanes past the 21 messages repeat the last;
+    every lane the JAX package's one-message expansion."""
+    rng = np.random.default_rng(23 + n_out)
+    msgs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in list(range(0, 120, 7)) + [130, 131, 517]]
+    rows, lens = _padded(msgs, width=530)
+    lanes = bt.bucket(len(msgs))
+    got = K.expand_xmd(torch.from_numpy(rows), torch.from_numpy(lens),
+                       _dst_prime(DST), n_out, lanes)
+    uniform = h2c.expand_message_xmd_batch(rows, DST, n_out, lens)
+    want = torch.cat([bt.byte_plane_np(np.ascontiguousarray(
+        uniform[:, lo:lo + 48]), lanes, CPU) for lo in range(0, n_out, 48)],
+        1)
+    assert got.shape == (48, n_out // 48 * lanes) and torch.equal(got, want)
+    strings = got.reshape(48, n_out // 48, lanes).permute(2, 1, 0) \
+        .reshape(lanes, n_out).numpy()
+    for i in range(lanes):
+        assert strings[i].tobytes() == jh2c.expand_message_xmd(
+            msgs[min(i, len(msgs) - 1)], DST, n_out), i
+
+
+@pytest.mark.parametrize("suite", ["RO", "NU"])
+def test_cores_from_rows_give_the_suite_vectors(suite):
+    """`_ro_bytes_core` (`_nu_bytes_core`) from rows, lengths, DST' and the
+    lane count: the J.8.1 (J.8.2) vectors' P, as affine byte planes, with
+    no identity."""
+    data, _ = _suite(suite)
+    dst = data["dst"].encode()
+    rows, lens = _padded([v["msg"].encode() for v in data["vectors"]])
+    core = h2c._ro_bytes_core if suite == "RO" else h2c._nu_bytes_core
+    xb, yb, ident = core(torch.from_numpy(rows), torch.from_numpy(lens),
+                         _dst_prime(dst), 16)
+    n = len(data["vectors"])
+    assert xb.shape == (32, 16) and not ident[:n].any()
+    for i, v in enumerate(data["vectors"]):
+        assert tuple(int.from_bytes(c[:, i].numpy().astype(np.uint8)
+                                    .tobytes(), "big") for c in (xb, yb)) == \
+            (int(v["P"]["x"], 16), int(v["P"]["y"], 16))
+
+
+@pytest.mark.parametrize("suite", ["RO", "NU"])
+def test_xmd_lanes_and_plain_calls_count_one_call(suite):
+    """One arrays call on the CPU adds its messages to XMD_LANES["host"]
+    (not the padded lanes), nothing to "device", and one plain call of the
+    expansion."""
+    _, arrays = _suite(suite)
+    rows, lens = _padded([b"abc", b"", b"q" * 70])
+    lanes, plain = dict(h2c.XMD_LANES), K.PLAIN_CALLS["expand_xmd"]
+    arrays(rows, DST, lens, device=CPU)
+    assert h2c.XMD_LANES == {"device": lanes["device"],
+                             "host": lanes["host"] + 3}
+    assert K.PLAIN_CALLS["expand_xmd"] == plain + 1
+
+
+@pytest.mark.parametrize("case", ["rows_dtype", "lens_dtype", "lens_shape",
+                                  "no_rows", "lanes", "dst_length_byte",
+                                  "dst_short", "n_out"])
+def test_expand_xmd_wrapper_rejects_bad_operands(case):
+    rows, lens = torch.zeros((3, 8), dtype=torch.uint8), \
+        torch.zeros(3, dtype=torch.int32)
+    args = {"rows": rows, "lens": lens, "dst_prime": _dst_prime(DST),
+            "n_out": 96, "lanes": 16}
+    args.update({
+        "rows_dtype": {"rows": rows.to(torch.int32)},
+        "lens_dtype": {"lens": lens.to(torch.int64)},
+        "lens_shape": {"lens": lens[:2]},
+        "no_rows": {"rows": rows[:0], "lens": lens[:0]},
+        "lanes": {"lanes": 2},
+        "dst_length_byte": {"dst_prime": DST + b"\x05"},
+        "dst_short": {"dst_prime": b"\x00"},
+        "n_out": {"n_out": 64}}[case])
+    with pytest.raises(ValueError):
+        K.expand_xmd(**args)

@@ -299,7 +299,7 @@ def test_engine_wrappers_take_the_plain_version_only_on_the_cpu():
 
 def test_build_is_keyed_by_the_sources():
     assert build.sources() == ["base", "bip340", "drbg", "glv", "lookup",
-                               "modops", "msm", "point"]
+                               "modops", "msm", "point", "xmd"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.build_dir().startswith(
