@@ -23,6 +23,7 @@ from ..utils import batching as bt
 from ..utils import config as cfg
 from ..utils import errors as ec
 from ..utils import hostcurve as hc
+from ..utils import profiling
 from . import ecdsa as ecdsamod
 from . import schnorr as schnorrmod
 
@@ -205,12 +206,15 @@ def verify_taproot_batch_arrays(pub_x: np.ndarray, digests: np.ndarray,
         raise ValueError(f"expected [n, 32] keys and digests, [n, >= 65] "
                          f"sigs and [n] lens, got {pub_x.shape}, "
                          f"{digests.shape}, {sigs.shape}, {np.shape(lens)}")
-    status, keys, sig64 = _taproot_host_parse(pub_x, sigs, lens)
-    core = schnorrmod._verify_status_arrays(keys, digests, sig64, None,
-                                            device)
-    return np.where(status != ec.OK, status,
-                    np.where(core == ec.OK, ec.OK, ec.ERR_VERIFY_FAILED)
-                    ).astype(np.int32)
+    with profiling.entry("schnorr"):
+        with profiling.span("schnorr.parse"):
+            status, keys, sig64 = _taproot_host_parse(pub_x, sigs, lens)
+        core = schnorrmod._verify_status_arrays(keys, digests, sig64, None,
+                                                device)
+        with profiling.span("schnorr.readback"):
+            return np.where(status != ec.OK, status,
+                            np.where(core == ec.OK, ec.OK,
+                                     ec.ERR_VERIFY_FAILED)).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -258,29 +262,37 @@ def sign_der_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
     status [n] int32): the strict DER signature and the sighash byte, at
     most 71 bytes once ground, zero past its length.  A lane whose key is
     not in [1, n) gets ERR_INVALID_SCALAR, a zero row and length 0.
-    `stats`, where given, receives the call's counters."""
-    sigs, _, status = ecdsamod.sign_batch_arrays(priv_bytes, digests,
-                                                 device=device)
-    n = sigs.shape[0]
-    rounds, seedings = 1, n
-    todo = np.nonzero(sigs[:, 0] >= 0x80)[0] if grind \
-        else np.zeros(0, np.int64)
-    while todo.size:
-        if rounds == MAX_GRIND_ROUNDS:
-            raise RuntimeError(f"{todo.size} lanes still high-R after "
-                               f"{rounds} rounds")
-        again, _, _ = ecdsamod.sign_batch_arrays(
-            priv_bytes[todo], digests[todo], device=device,
-            extra=_grind_extra(rounds, todo.size))
-        sigs[todo] = again
-        seedings += todo.size
-        rounds += 1
-        todo = todo[again[:, 0] >= 0x80]
-    der, lens = native.der_sig_encode_batch(sigs[:, :32], sigs[:, 32:],
-                                            sighash)
-    bad = status != ec.OK
-    der[bad] = 0
-    lens[bad] = 0
+    `stats`, where given, receives the call's counters.  Each round is a
+    `sign.round` span (its `lanes` and `round`), the encoding `sign.der`."""
+    n = priv_bytes.shape[0]
+    with profiling.entry("sign"):
+        with profiling.span("sign.round") as sp:
+            sp.lanes, sp.round = n, 0
+            sigs, _, status = ecdsamod.sign_batch_arrays(
+                priv_bytes, digests, device=device)
+            todo = np.nonzero(sigs[:, 0] >= 0x80)[0] if grind \
+                else np.zeros(0, np.int64)
+        rounds, seedings = 1, n
+        while todo.size:
+            if rounds == MAX_GRIND_ROUNDS:
+                raise RuntimeError(f"{todo.size} lanes still high-R after "
+                                   f"{rounds} rounds")
+            with profiling.span("sign.round") as sp:
+                sp.lanes, sp.round = todo.size, rounds
+                again, _, _ = ecdsamod.sign_batch_arrays(
+                    priv_bytes[todo], digests[todo], device=device,
+                    extra=_grind_extra(rounds, todo.size))
+                sigs[todo] = again
+                seedings += todo.size
+                rounds += 1
+                todo = todo[again[:, 0] >= 0x80]
+        with profiling.span("sign.der"):
+            der, lens = native.der_sig_encode_batch(sigs[:, :32],
+                                                    sigs[:, 32:], sighash)
+            bad = status != ec.OK
+            der[bad] = 0
+            lens[bad] = 0
+            der = np.ascontiguousarray(der[:, :DER_ROW_BYTES])
     if stats is not None:
         stats.rounds, stats.seedings, stats.signatures = rounds, seedings, n
-    return np.ascontiguousarray(der[:, :DER_ROW_BYTES]), lens, status
+    return der, lens, status

@@ -38,6 +38,7 @@ from ..utils import config as cfg
 from ..utils import errors as ec
 from ..utils import graphs
 from ..utils import hostcurve as hc
+from ..utils import profiling
 from . import codecs
 from . import keys as keysmod
 from .rfc6979 import DrbgRFC6979, RFC6979SHA256  # noqa: F401
@@ -111,10 +112,20 @@ def _verify_e2e_core(want_odd, pub_x_bytes, e_bytes, r_bytes, s_bytes,
     """Verify from raw byte planes with SEC1-compressed keys: decompress,
     reduce the digest, optional low-s rejection, then the SEC1 core.
     `host_status` (parse failures) takes precedence."""
-    pub, pub_status = s11n.decompress(want_odd, pub_x_bytes)
+    on_card = pub_x_bytes.is_cuda
+    with profiling.span("verify.decompress", on_card):
+        pub, pub_status = s11n.decompress(want_odd, pub_x_bytes)
     e, r, s = _scalars(e_bytes, r_bytes, s_bytes)
-    st = _verify_impl(pub.x, pub.y, e, r, s)
+    st = _verify_core_span(pub, e, r, s, on_card)
     return _finish(st, pub_status, s, reject_malleable, host_status)
+
+
+def _verify_core_span(pub, e, r, s, on_card: bool):
+    """`_verify_impl` inside the `verify.core` span (its `lanes` the
+    planes' width)."""
+    with profiling.span("verify.core", on_card) as sp:
+        sp.lanes = pub.x.shape[-1]
+        return _verify_impl(pub.x, pub.y, e, r, s)
 
 
 def _verify_e2e_mixed_core(want_odd, is_unc, x_bytes, y_bytes, e_bytes,
@@ -124,12 +135,14 @@ def _verify_e2e_mixed_core(want_odd, is_unc, x_bytes, y_bytes, e_bytes,
     take the uncompressed decode, others decompress from x.  Both decodes
     run on every lane (uniform schedule); the result is a per-lane
     select."""
-    pub_c, st_c = s11n.decompress(want_odd, x_bytes)
-    pub_u, st_u = s11n.decode_uncompressed(x_bytes, y_bytes)
-    pub = pt.select(is_unc, pub_u, pub_c)
-    pub_status = torch.where(is_unc, st_u, st_c)
+    on_card = x_bytes.is_cuda
+    with profiling.span("verify.decompress", on_card):
+        pub_c, st_c = s11n.decompress(want_odd, x_bytes)
+        pub_u, st_u = s11n.decode_uncompressed(x_bytes, y_bytes)
+        pub = pt.select(is_unc, pub_u, pub_c)
+        pub_status = torch.where(is_unc, st_u, st_c)
     e, r, s = _scalars(e_bytes, r_bytes, s_bytes)
-    st = _verify_impl(pub.x, pub.y, e, r, s)
+    st = _verify_core_span(pub, e, r, s, on_card)
     return _finish(st, pub_status, s, reject_malleable, host_status)
 
 
@@ -174,9 +187,12 @@ def _sign_e2e_core(d_bytes, e_bytes, extra_bytes, attempt: int):
     if key is None:
         if d_bytes.device.type == "cuda":
             SIGN_GRAPHS["eager"] += 1
+            profiling.current().how = "eager"
         return _sign_e2e_body(d_bytes, e_bytes, extra_bytes, attempt)
-    return _SIGN_CACHE.run(key, _sign_first_candidate,
-                           (d_bytes, e_bytes, extra_bytes))
+    out, how = _SIGN_CACHE.run(key, _sign_first_candidate,
+                               (d_bytes, e_bytes, extra_bytes))
+    profiling.current().how = how
+    return out
 
 
 def _sign_e2e_body(d_bytes, e_bytes, extra_bytes, attempt: int):
@@ -374,28 +390,30 @@ def _e2e_host_parse(pubs_sec1: np.ndarray, sigs: np.ndarray,
 
 def _e2e_dispatch(pubs_sec1, digests, r_arr, s_arr, host_status,
                   reject_malleable, device):
-    """Marshal one chunk to planes on `device` and run the device stage
-    (asynchronous on a GPU: returns the status tensor)."""
+    """Marshal one chunk to planes on `device` (the `verify.planes` span)
+    and run the device stage (asynchronous on a GPU: returns the status
+    tensor)."""
     n = pubs_sec1.shape[0]
     b = bt.bucket(n)
-    prefix = pubs_sec1[:, 0]
-    want_odd = bt.scalar_plane(prefix == 0x03, b, fill=False,
-                               dtype=torch.bool, device=device)
-    host = bt.scalar_plane(host_status, b, device=device)
-    if pubs_sec1.shape[1] == 65:
-        is_unc = bt.scalar_plane(prefix == 0x04, b, fill=False,
-                                 dtype=torch.bool, device=device)
-        return _verify_e2e_mixed_core(
-            want_odd, is_unc, bt.byte_plane_np(pubs_sec1[:, 1:33], b, device),
-            bt.byte_plane_np(pubs_sec1[:, 33:65], b, device),
-            bt.byte_plane_np(digests, b, device),
-            bt.byte_plane_np(r_arr, b, device),
-            bt.byte_plane_np(s_arr, b, device), reject_malleable, host)
-    return _verify_e2e_core(
-        want_odd, bt.byte_plane_np(pubs_sec1[:, 1:], b, device),
-        bt.byte_plane_np(digests, b, device),
-        bt.byte_plane_np(r_arr, b, device),
-        bt.byte_plane_np(s_arr, b, device), reject_malleable, host)
+    mixed = pubs_sec1.shape[1] == 65
+    with profiling.span("verify.planes"):
+        prefix = pubs_sec1[:, 0]
+        want_odd = bt.scalar_plane(prefix == 0x03, b, fill=False,
+                                   dtype=torch.bool, device=device)
+        host = bt.scalar_plane(host_status, b, device=device)
+        if mixed:
+            is_unc = bt.scalar_plane(prefix == 0x04, b, fill=False,
+                                     dtype=torch.bool, device=device)
+            keys = [bt.byte_plane_np(pubs_sec1[:, 1:33], b, device),
+                    bt.byte_plane_np(pubs_sec1[:, 33:65], b, device)]
+        else:
+            keys = [bt.byte_plane_np(pubs_sec1[:, 1:], b, device)]
+        rows = [bt.byte_plane_np(a, b, device) for a in (digests, r_arr,
+                                                          s_arr)]
+    if mixed:
+        return _verify_e2e_mixed_core(want_odd, is_unc, *keys, *rows,
+                                      reject_malleable, host)
+    return _verify_e2e_core(want_odd, *keys, *rows, reject_malleable, host)
 
 
 # ---------------------------------------------------------------------------
@@ -431,38 +449,43 @@ def _verify_arrays(pubs_sec1, digests, sigs, lens, reject_malleable,
                    parse=native.asn1_sig_parse_batch):
     """`verify_batch_arrays` on a resolved device, the rows read by the
     native parser `parse` (arguments and statuses of
-    `native.asn1_sig_parse_batch`)."""
+    `native.asn1_sig_parse_batch`): the `verify.call` root with its
+    `verify.parse`, `verify.planes`, `verify.decompress`, `verify.core`
+    and `verify.readback` spans."""
     n = pubs_sec1.shape[0]
     if pubs_sec1.shape[1] not in (33, 65) or digests.shape[0] != n \
             or digests.shape[1] < 32 or sigs.shape[0] != n:
         raise ValueError(
             f"expected pubs [n, 33|65], digests [n, >=32] and sigs [n, *]; "
             f"got {pubs_sec1.shape}, {digests.shape}, {sigs.shape}")
-    if digests.shape[1] > 32:
-        digests = np.ascontiguousarray(digests[:, :32])
-    if lens is None:
-        lens = np.full((n,), sigs.shape[1], dtype=np.int32)
+    with profiling.entry("verify"):
+        if digests.shape[1] > 32:
+            digests = np.ascontiguousarray(digests[:, :32])
+        if lens is None:
+            lens = np.full((n,), sigs.shape[1], dtype=np.int32)
 
-    r_arr, s_arr, host_status = _e2e_host_parse(pubs_sec1, sigs, lens,
-                                                parse)
-    if pub_lens is not None:
-        expect = np.where(pubs_sec1[:, 0] == 0x04, 65, 33)
-        host_status = np.where(
-            (pub_lens != expect) & (host_status == ec.OK),
-            ec.ERR_INVALID_PUBLIC_KEY, host_status).astype(np.int32)
+        with profiling.span("verify.parse"):
+            r_arr, s_arr, host_status = _e2e_host_parse(pubs_sec1, sigs,
+                                                        lens, parse)
+            if pub_lens is not None:
+                expect = np.where(pubs_sec1[:, 0] == 0x04, 65, 33)
+                host_status = np.where(
+                    (pub_lens != expect) & (host_status == ec.OK),
+                    ec.ERR_INVALID_PUBLIC_KEY, host_status).astype(np.int32)
 
-    chunk_lanes = bt.auto_chunk(n, chunk_lanes)
-    if chunk_lanes is None or n <= chunk_lanes:
-        spans = [(0, n)]
-    else:
-        spans = [(lo, min(lo + chunk_lanes, n))
-                 for lo in range(0, n, chunk_lanes)]
-    outs = [_e2e_dispatch(pubs_sec1[lo:hi], digests[lo:hi], r_arr[lo:hi],
-                          s_arr[lo:hi], host_status[lo:hi],
-                          reject_malleable, device)
-            for lo, hi in spans]
-    return np.concatenate([o[:hi - lo].cpu().numpy()
-                           for o, (lo, hi) in zip(outs, spans)])
+        chunk_lanes = bt.auto_chunk(n, chunk_lanes)
+        if chunk_lanes is None or n <= chunk_lanes:
+            spans = [(0, n)]
+        else:
+            spans = [(lo, min(lo + chunk_lanes, n))
+                     for lo in range(0, n, chunk_lanes)]
+        outs = [_e2e_dispatch(pubs_sec1[lo:hi], digests[lo:hi],
+                              r_arr[lo:hi], s_arr[lo:hi], host_status[lo:hi],
+                              reject_malleable, device)
+                for lo, hi in spans]
+        with profiling.span("verify.readback"):
+            return np.concatenate([o[:hi - lo].cpu().numpy()
+                                   for o, (lo, hi) in zip(outs, spans)])
 
 
 def verify_raw_batch_status(pubs, digests, rs_pairs, device=None) -> list:
@@ -551,19 +574,23 @@ def verify_batch(pubs, digests, sigs, opts: cfg.ECDSAOptions | None = None,
         pubs, digests, sigs, opts=opts, device=device)]
 
 
-def _sign_arrays_device(d_arr, e_arr, extra, attempt, device):
-    """One `_sign_e2e_core` call on [n, 32] u8 key, reduced-digest and
-    extra (or None) rows at candidate `attempt`: (sigs [n, 64] r || s,
-    recids [n], resample [n], bad_key [n])."""
+def _sign_arrays_device(d_arr, digests, extra, attempt, device):
+    """One `_sign_e2e_core` call on [n, 32] u8 key, digest and extra (or
+    None) rows at candidate `attempt`, as the `sign.planes` (the digests
+    reduced mod n, three byte planes), `sign.core` and `sign.readback`
+    spans: (sigs [n, 64] r || s, recids [n], resample [n], bad_key [n])."""
     n = d_arr.shape[0]
     b = bt.bucket(n)
-    r_b, s_b, recid, resample, bad = _sign_e2e_core(
-        bt.byte_plane_np(d_arr, b, device), bt.byte_plane_np(e_arr, b, device),
-        None if extra is None else bt.byte_plane_np(extra, b, device),
-        attempt)
-    sigs = np.concatenate([_plane_rows(r_b, n), _plane_rows(s_b, n)], 1)
-    return (sigs, recid[:n].cpu().numpy().astype(np.int32),
-            resample[:n].cpu().numpy(), bad[:n].cpu().numpy())
+    with profiling.span("sign.planes"):
+        planes = [None if a is None else bt.byte_plane_np(a, b, device)
+                  for a in (d_arr, _reduce_digest_np(digests), extra)]
+    with profiling.span("sign.core", device.type == "cuda") as sp:
+        sp.lanes = n
+        r_b, s_b, recid, resample, bad = _sign_e2e_core(*planes, attempt)
+    with profiling.span("sign.readback"):
+        sigs = np.concatenate([_plane_rows(r_b, n), _plane_rows(s_b, n)], 1)
+        return (sigs, recid[:n].cpu().numpy().astype(np.int32),
+                resample[:n].cpu().numpy(), bad[:n].cpu().numpy())
 
 
 def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
@@ -592,26 +619,26 @@ def sign_batch_arrays(priv_bytes: np.ndarray, digests: np.ndarray,
             raise ValueError(f"expected [{n}, 32] extra rows, got "
                              f"{extra.shape}")
         extra = np.ascontiguousarray(extra, dtype=np.uint8)
-    priv_bytes = np.ascontiguousarray(priv_bytes, dtype=np.uint8)
-    e_arr = _reduce_digest_np(digests)
-    sigs, recid, resample, bad = _sign_arrays_device(priv_bytes, e_arr, extra,
-                                                     0, device)
-    todo = np.nonzero(resample & ~bad)[0]
-    for attempt in range(1, MAX_SCALAR_RESAMPLES + 1):
-        if not todo.size:
-            break
-        s2, v2, again, _ = _sign_arrays_device(
-            priv_bytes[todo], e_arr[todo],
-            None if extra is None else extra[todo], attempt, device)
-        sigs[todo] = s2
-        recid[todo] = v2
-        todo = todo[again]
-    if todo.size:
-        raise RuntimeError("failed rejection sampling for r/s")
-    status = np.where(bad, ec.ERR_INVALID_SCALAR, ec.OK).astype(np.int32)
-    sigs[bad] = 0
-    recid[bad] = 0
-    return sigs, recid, status
+    with profiling.entry("sign"):
+        priv_bytes = np.ascontiguousarray(priv_bytes, dtype=np.uint8)
+        sigs, recid, resample, bad = _sign_arrays_device(
+            priv_bytes, digests, extra, 0, device)
+        todo = np.nonzero(resample & ~bad)[0]
+        for attempt in range(1, MAX_SCALAR_RESAMPLES + 1):
+            if not todo.size:
+                break
+            s2, v2, again, _ = _sign_arrays_device(
+                priv_bytes[todo], digests[todo],
+                None if extra is None else extra[todo], attempt, device)
+            sigs[todo] = s2
+            recid[todo] = v2
+            todo = todo[again]
+        if todo.size:
+            raise RuntimeError("failed rejection sampling for r/s")
+        status = np.where(bad, ec.ERR_INVALID_SCALAR, ec.OK).astype(np.int32)
+        sigs[bad] = 0
+        recid[bad] = 0
+        return sigs, recid, status
 
 
 def sign_batch(privs, digests, rand=None,

@@ -30,6 +30,7 @@ from ..ops import point as pt
 from ..ops import swu
 from ..ops.cuda import kernels as K
 from ..utils import batching as bt
+from ..utils import profiling
 
 _H_OUT = 32   # SHA-256 output
 _H_BLOCK = 64  # SHA-256 block
@@ -72,9 +73,6 @@ def expand_message_xmd(msg: bytes, dst: bytes, n_out: int) -> bytes:
 # the native hashing counts them ("blocks"), and the messages it expanded
 # ("messages").
 XMD_HOST_BLOCKS = {"blocks": 0, "messages": 0}
-# The messages of the arrays entry points expanded by the kernel
-# ("device": CUDA tensors) and by its plain version ("host": the CPU).
-XMD_LANES = {"device": 0, "host": 0}
 
 
 def expand_message_xmd_batch(msgs: np.ndarray, dst: bytes, n_out: int,
@@ -186,22 +184,30 @@ def _nu_bytes_core(rows, lens, dst_prime: bytes, lanes: int):
 
 def _h2c_arrays(msgs: np.ndarray, dst: bytes, random_oracle: bool, lens,
                 device):
+    """The arrays entry points: the `h2c.call` root, its `h2c.planes` (the
+    lengths' check, the DST, both uploads), `h2c.core` (`lanes`) and
+    `h2c.readback` spans."""
     device = bt.resolve_device(device)
     msgs = np.ascontiguousarray(msgs, dtype=np.uint8)
     if msgs.ndim != 2 or not msgs.shape[0]:
         raise ValueError(f"expected [n >= 1, L] uint8 rows, got {msgs.shape}")
     n, width = msgs.shape
-    lens = np.full(n, width, np.int32) if lens is None \
-        else native.lane_lengths(lens, n, width)
-    dst, _ = _dst_and_ell(dst, 96 if random_oracle else 48)
-    XMD_LANES["device" if device.type == "cuda" else "host"] += n
-    core = _ro_bytes_core if random_oracle else _nu_bytes_core
-    xb, yb, ident = core(torch.from_numpy(msgs).to(device),
-                         torch.from_numpy(lens).to(device),
-                         dst + bytes([len(dst)]), bt.bucket(n))
-    xs = xb[:, :n].cpu().numpy().astype(np.uint8).T
-    ys = yb[:, :n].cpu().numpy().astype(np.uint8).T
-    return np.concatenate([xs, ys], axis=1), ident[:n].cpu().numpy()
+    with profiling.entry("h2c"):
+        with profiling.span("h2c.planes"):
+            lens = np.full(n, width, np.int32) if lens is None \
+                else native.lane_lengths(lens, n, width)
+            dst, _ = _dst_and_ell(dst, 96 if random_oracle else 48)
+            rows_d = torch.from_numpy(msgs).to(device)
+            lens_d = torch.from_numpy(lens).to(device)
+        core = _ro_bytes_core if random_oracle else _nu_bytes_core
+        with profiling.span("h2c.core", device.type == "cuda") as sp:
+            sp.lanes = n
+            xb, yb, ident = core(rows_d, lens_d, dst + bytes([len(dst)]),
+                                 bt.bucket(n))
+        with profiling.span("h2c.readback"):
+            xs = xb[:, :n].cpu().numpy().astype(np.uint8).T
+            ys = yb[:, :n].cpu().numpy().astype(np.uint8).T
+            return np.concatenate([xs, ys], axis=1), ident[:n].cpu().numpy()
 
 
 def hash_to_curve_batch_arrays(msgs: np.ndarray, dst: bytes, lens=None,

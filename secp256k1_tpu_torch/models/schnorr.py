@@ -37,6 +37,7 @@ from ..utils import batching as bt
 from ..utils import errors as ec
 from ..utils import graphs
 from ..utils import hostcurve as hc
+from ..utils import profiling
 from .ecdsa import _plane_rows, _reduce_digest_np, _status_where
 
 N = hc.N
@@ -229,17 +230,16 @@ def _schnorr_verify_e2e_core(pub_x_bytes, r_bytes, s_bytes, msg_bytes):
     if key is None:
         if pub_x_bytes.device.type == "cuda":
             VERIFY_GRAPHS["eager"] += 1
+            profiling.current().how = "eager"
         return _schnorr_verify_e2e_body(*planes)
-    return _VERIFY_CACHE.run(key, _verify_body_tuple, planes)[0]
+    out, how = _VERIFY_CACHE.run(key, _verify_body_tuple, planes)
+    profiling.current().how = how
+    return out[0]
 
 
 # How the verify core's calls on the GPU ran (`graphs.Cache.counts`).
 _VERIFY_CACHE = graphs.Cache()
 VERIFY_GRAPHS = _VERIFY_CACHE.counts
-# The lanes of `_verify_status_arrays` whose challenge the kernel hashed
-# ("device": CUDA planes) and whose challenge its plain version hashed
-# ("host": CPU planes).
-CHALLENGE_LANES = {"device": 0, "host": 0}
 
 
 def _verify_graph_key(planes):
@@ -449,8 +449,9 @@ def verify_batch_arrays(pub_x: np.ndarray, msgs: np.ndarray,
         raise ValueError(f"expected [n, 32] keys, [n, L] messages and "
                          f"[n, 64] sigs, got {pub_x.shape}, {msgs.shape}, "
                          f"{sigs.shape}")
-    return _verify_status_arrays(pub_x, msgs, sigs, chunk_lanes,
-                                 device) == ec.OK
+    with profiling.entry("schnorr"):
+        return _verify_status_arrays(pub_x, msgs, sigs, chunk_lanes,
+                                     device) == ec.OK
 
 
 def _verify_status_arrays(pub_x: np.ndarray, msgs: np.ndarray,
@@ -461,20 +462,20 @@ def _verify_status_arrays(pub_x: np.ndarray, msgs: np.ndarray,
     where the key does not lift or r >= p or s >= n, ERR_VERIFY_FAILED
     where the equation fails.  The challenge hash, parsing, the key lift
     and the group math run on the device (`_schnorr_verify_e2e_core`),
-    chunk after chunk; `CHALLENGE_LANES` counts the lanes."""
+    chunk after chunk, each a `schnorr.planes` and a `schnorr.core` span
+    (its `lanes`, and `how` on a card)."""
     n = pub_x.shape[0]
-    r_arr = np.ascontiguousarray(sigs[:, :32])
-    s_arr = np.ascontiguousarray(sigs[:, 32:])
+    on_card = device.type == "cuda"
 
     def dispatch(lo, hi):
         b = bt.bucket(hi - lo)
-        CHALLENGE_LANES["device" if device.type == "cuda" else "host"] += \
-            hi - lo
-        return _schnorr_verify_e2e_core(
-            bt.byte_plane_np(pub_x[lo:hi], b, device),
-            bt.byte_plane_np(r_arr[lo:hi], b, device),
-            bt.byte_plane_np(s_arr[lo:hi], b, device),
-            bt.byte_plane_np(msgs[lo:hi], b, device))
+        with profiling.span("schnorr.planes"):
+            planes = [bt.byte_plane_np(a, b, device) for a in (
+                pub_x[lo:hi], sigs[lo:hi, :32], sigs[lo:hi, 32:],
+                msgs[lo:hi])]
+        with profiling.span("schnorr.core", on_card) as sp:
+            sp.lanes = hi - lo
+            return _schnorr_verify_e2e_core(*planes)
 
     chunk_lanes = bt.auto_chunk(n, chunk_lanes)
     if chunk_lanes is None or n <= chunk_lanes:
@@ -483,9 +484,10 @@ def _verify_status_arrays(pub_x: np.ndarray, msgs: np.ndarray,
         spans = [(lo, min(lo + chunk_lanes, n))
                  for lo in range(0, n, chunk_lanes)]
     outs = [dispatch(lo, hi) for lo, hi in spans]
-    return np.concatenate([o[:hi - lo].cpu().numpy()
-                           for o, (lo, hi) in zip(outs, spans)]).astype(
-                               np.int32)
+    with profiling.span("schnorr.readback"):
+        return np.concatenate([o[:hi - lo].cpu().numpy()
+                               for o, (lo, hi) in zip(outs, spans)]
+                              ).astype(np.int32)
 
 
 # Single-item conveniences -------------------------------------------------

@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from ..utils import profiling
 from . import limbs as lb
 from . import point as pt
 from . import table as tbl
@@ -290,14 +291,19 @@ def multi_scalar_mult(scalars, points: pt.Point,
     same device.  window_bits=None chooses as the JAX package does: 4 when
     the bucket path applies (unsigned digits, 15 buckets: the JAX comment
     "signed digits, 8 buckets" disagrees with its code, which this follows),
-    else the sort + scan path at 8 from 2^14 points up and 4 below."""
+    else the sort + scan path at 8 from 2^14 points up and 4 below.
+    Spans: the `msm.call` root, `msm.window_sums` and `msm.fold`."""
     if window_bits is None:
         if _fused_msm_ok(points, 4):
             window_bits = 4
         else:
             window_bits = 8 if points.x.shape[-1] >= (1 << 14) else 4
-    wsums = pippenger_window_sums(scalars, points, window_bits)
-    return combine_windows(wsums, window_bits)
+    on_card = scalars.is_cuda
+    with profiling.entry("msm"):
+        with profiling.span("msm.window_sums", on_card):
+            wsums = pippenger_window_sums(scalars, points, window_bits)
+        with profiling.span("msm.fold", on_card):
+            return combine_windows(wsums, window_bits)
 
 
 def multi_scalar_mult_straus(scalars, points: pt.Point) -> pt.Point:

@@ -27,18 +27,19 @@ class Cache:
         self.graphs: dict = {}
 
     def run(self, key, body, planes):
-        """body(*planes), a tuple of tensors, through the graph of `key`
-        (its first element the device): the first call with a key answers
-        from an eager run on a side stream, then captures."""
+        """(body(*planes), a tuple of tensors, through the graph of `key`
+        (its first element the device); how the call ran, "captured" or
+        "replayed"): the first call with a key answers from an eager run
+        on a side stream, then captures."""
         with torch.cuda.device(key[0]):
             graph = self.graphs.get(key)
             if graph is not None:
                 self.counts["replayed"] += 1
-                return graph.replay(planes)
+                return graph.replay(planes), "replayed"
             out = _side_stream(body, planes)
             self.graphs[key] = Captured(body, planes)
             self.counts["captured"] += 1
-            return out
+            return out, "captured"
 
 
 def _side_stream(body, planes):

@@ -1,4 +1,5 @@
-"""Profiling and the H100 yardstick: traces, slope timing, roofline bounds.
+"""Profiling and the H100 yardstick: traces, program spans, slope timing,
+roofline bounds.
 
 The port of `secp256k1_tpu.utils.profiling`.  `trace` is a
 `torch.profiler` session, `timed_chain` times by CUDA events on the card,
@@ -7,17 +8,29 @@ carries over): bytes over the HBM rate, 32-bit integer products over the
 multiply-add rate of the SMs at their maximum clock, int8 tensor-core
 operations over the dense int8 rate.  `chip_smoke.py` takes its bounds from
 here.
+
+Program spans name the stages of the entry points (`entry`, `span`): each
+call's `<path>.call` root and, under it, `<path>.planes` (host rows made
+ready and uploaded), `<path>.core` (the device stage) and
+`<path>.readback`.  They are on exactly while a `torch.profiler` session
+runs, where each also opens `torch.profiler.record_function`, so a trace
+shows them on the host's row beside the kernels; `spans()` returns their
+records.  Off, a span is one shared inert object.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
+import itertools
 import os
 import subprocess
 import tempfile
 import time
 
 import torch
+from torch.autograd import _profiler_enabled
 
 # Published H100 SXM figures (NVIDIA data sheet; CUDA C++ Programming
 # Guide, arithmetic instruction throughput for compute capability 9.0: 64
@@ -131,9 +144,144 @@ def trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    _RECORDS.clear()
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+# ---------------------------------------------------------------------------
+# Program spans.
+# ---------------------------------------------------------------------------
+
+# The records kept: a long profiled session drops the oldest.
+SPAN_RECORDS = 1 << 16
+_RECORDS: collections.deque = collections.deque(maxlen=SPAN_RECORDS)
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "secp256k1_tpu_torch_span", default=None)
+_IDS = itertools.count(1)
+_FIELDS = ("name", "id", "parent", "call", "t0", "t1", "counts",
+           "device_ms", "_events", "_annotation", "_token")
+
+
+class Span:
+    """The record of one stage: `name`; host start and end `t0`, `t1`
+    (`time.perf_counter`, the benchmark's clock); its `id`, its `parent`'s
+    id (None at a root) and the `call` id that a root draws and its
+    descendants share; `counts` (set as attributes inside the span: `s.lanes
+    = n`, `s.how = "replayed"`); `device_ms` from CUDA events around it,
+    where it was opened with `device=True`, resolved by `spans()`."""
+
+    __slots__ = _FIELDS
+
+    def __init__(self, name: str, device: bool):
+        set_ = object.__setattr__
+        set_(self, "counts", {})
+        set_(self, "name", name)
+        set_(self, "id", next(_IDS))
+        set_(self, "device_ms", None)
+        set_(self, "_events", (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+             if device else None)
+
+    def __setattr__(self, key, value):
+        if key in _FIELDS:
+            object.__setattr__(self, key, value)
+        else:
+            self.counts[key] = value
+
+    def __getattr__(self, key):
+        try:
+            return object.__getattribute__(self, "counts")[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def __enter__(self):
+        self._annotation = torch.profiler.record_function(self.name)
+        self._annotation.__enter__()
+        parent = _CURRENT.get()
+        self.parent = None if parent is None else parent.id
+        self.call = self.id if parent is None else parent.call
+        self._token = _CURRENT.set(self)
+        if self._events is not None:
+            self._events[0].record()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        if self._events is not None:
+            self._events[1].record()
+        _CURRENT.reset(self._token)
+        self._annotation.__exit__(*exc)
+        self._annotation = self._token = None
+        _RECORDS.append(self)
+        return False
+
+
+class _Inert:
+    """The span of a call while spans are off: a no-op context whose
+    counts go nowhere."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __setattr__(self, key, value):
+        pass
+
+
+INERT = _Inert()
+
+
+def _off() -> bool:
+    """Spans are off outside a profiler session, and while the current
+    stream captures a CUDA graph (a replay runs none of the host code)."""
+    return not _profiler_enabled() or (
+        torch.cuda.is_initialized()
+        and torch.cuda.is_current_stream_capturing())
+
+
+def span(name: str, device: bool = False):
+    """A context manager over one stage, `<path>.<stage>`: a new `Span`
+    record while a profiler session runs (with CUDA events around it where
+    `device`, which the caller sets when the stage's work is on a card),
+    else `INERT`."""
+    if _off():
+        return INERT
+    return Span(name, device)
+
+
+def entry(path: str):
+    """The root span `<path>.call` of an entry point's call; `INERT` inside
+    another span, so an entry point that another one calls opens no second
+    root."""
+    if _off() or _CURRENT.get() is not None:
+        return INERT
+    return Span(path + ".call", False)
+
+
+def current():
+    """The innermost open span, where a callee sets counts on it (the
+    core's `how`); `INERT` where none is open."""
+    s = _CURRENT.get()
+    return INERT if s is None else s
+
+
+def spans() -> list:
+    """The records kept (at most `SPAN_RECORDS`), in the order they
+    closed, each `device_ms` resolved: waits for the span's end event."""
+    out = list(_RECORDS)
+    for s in out:
+        if s._events is not None:
+            s._events[1].synchronize()
+            s.device_ms = s._events[0].elapsed_time(s._events[1])
+            s._events = None
+    return out
 
 
 def _tensors(tree):

@@ -19,8 +19,8 @@ lengths [n]:
   plain version): the [48, 2B] and [48, B] planes of
   `expand_message_xmd_batch` and `byte_plane_np`, padded lanes included;
   the cores `_ro_bytes_core` and `_nu_bytes_core` from rows, lengths and
-  DST' against the J.8.1 (J.8.2) vectors; the counts `h2c.XMD_LANES` and
-  `PLAIN_CALLS["expand_xmd"]`; the wrapper's ValueErrors.
+  DST' against the J.8.1 (J.8.2) vectors; the `h2c.core` span's lanes
+  and `PLAIN_CALLS["expand_xmd"]`; the wrapper's ValueErrors.
 
 Every comparison is exact.
 """
@@ -28,6 +28,7 @@ Every comparison is exact.
 import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ from secp256k1_tpu_torch import native
 from secp256k1_tpu_torch.models import h2c
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import batching as bt
+from secp256k1_tpu_torch.utils import profiling
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -308,15 +310,18 @@ def test_cores_from_rows_give_the_suite_vectors(suite):
 
 @pytest.mark.parametrize("suite", ["RO", "NU"])
 def test_xmd_lanes_and_plain_calls_count_one_call(suite):
-    """One arrays call on the CPU adds its messages to XMD_LANES["host"]
-    (not the padded lanes), nothing to "device", and one plain call of the
-    expansion."""
+    """One arrays call on the CPU under a profiler session: one
+    `h2c.core` span of its messages (not the padded lanes), with no device
+    time, and one plain call of the expansion."""
     _, arrays = _suite(suite)
     rows, lens = _padded([b"abc", b"", b"q" * 70])
-    lanes, plain = dict(h2c.XMD_LANES), K.PLAIN_CALLS["expand_xmd"]
-    arrays(rows, DST, lens, device=CPU)
-    assert h2c.XMD_LANES == {"device": lanes["device"],
-                             "host": lanes["host"] + 3}
+    plain = K.PLAIN_CALLS["expand_xmd"]
+    t0 = time.perf_counter()
+    with torch.profiler.profile():
+        arrays(rows, DST, lens, device=CPU)
+    cores = [r for r in profiling.spans()
+             if r.name == "h2c.core" and r.t0 >= t0]
+    assert [(r.lanes, r.device_ms) for r in cores] == [(3, None)]
     assert K.PLAIN_CALLS["expand_xmd"] == plain + 1
 
 

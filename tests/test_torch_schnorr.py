@@ -10,13 +10,14 @@ On a card (marked `card`, skipped without one): the challenge kernel
 `k_bip340_challenge` against the native library's tagged hash at 16,384
 and 65,536 lanes and every length of `CHALLENGE_LENGTHS`, and the vectors
 through `verify_batch_arrays` there, every lane's challenge hashed by the
-kernel (`schnorr.CHALLENGE_LANES`).  Run there with `python -m pytest
+kernel (one launch, the `schnorr.core` span's lanes).  Run there with `python -m pytest
 --noconftest -p no:cacheprovider -m card tests/test_torch_schnorr.py`: the
 JAX package, which two CPU cases compare with, is imported inside them.
 """
 
 import csv
 import os
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from secp256k1_tpu_torch.models import keys, schnorr
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import batching as bt
 from secp256k1_tpu_torch.utils import errors as ec
+from secp256k1_tpu_torch.utils import profiling
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -136,20 +138,28 @@ def test_sign_batch_arrays(msg_len):
 
 
 def _verify_vectors(msg_len, device):
-    """The vectors of one message length through `verify_batch_arrays`:
-    their results exact, and each lane's challenge counted once, under
-    "device" on a card and "host" on the CPU."""
+    """The vectors of one message length through `verify_batch_arrays`
+    under a profiler session: their results exact, and every lane's
+    challenge hashed in one call, by the kernel on a card (its launch, the
+    core's device time) and by the plain version on the CPU, in one
+    `schnorr.core` span of all the lanes."""
     rows = [r for r in ROWS if len(r["message"]) == 2 * msg_len]
-    lanes = dict(schnorr.CHALLENGE_LANES)
-    got = schnorr.verify_batch_arrays(
-        _arr(rows, "public key", 32), _arr(rows, "message", msg_len),
-        _arr(rows, "signature", 64), device=device)
+    on_card = torch.device(device).type == "cuda"
+    calls = K.LAUNCHES if on_card else K.PLAIN_CALLS
+    before = calls["bip340_challenge"]
+    t0 = time.perf_counter()
+    with torch.profiler.profile():
+        got = schnorr.verify_batch_arrays(
+            _arr(rows, "public key", 32), _arr(rows, "message", msg_len),
+            _arr(rows, "signature", 64), device=device)
     assert got.dtype == bool
     assert got.tolist() == [r["verification result"] == "TRUE"
                             for r in rows]
-    side = "device" if torch.device(device).type == "cuda" else "host"
-    assert schnorr.CHALLENGE_LANES == dict(lanes,
-                                           **{side: lanes[side] + len(rows)})
+    assert calls["bip340_challenge"] == before + 1
+    cores = [r for r in profiling.spans()
+             if r.name == "schnorr.core" and r.t0 >= t0]
+    assert [(r.lanes, r.device_ms is not None) for r in cores] == \
+        [(len(rows), on_card)]
 
 
 @pytest.mark.parametrize("msg_len", MSG_LENS)

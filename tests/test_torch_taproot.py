@@ -11,7 +11,7 @@ traffic; r = p, s = n, key x = p; Core's precedence where rules collide;
 and BIP-0340's published vectors (those of 32-byte messages) as 64-byte
 signatures.  Each case is a test of its own lanes.  Beside it,
 `schnorr.verify_batch_arrays` against the status helper both share, and
-the challenge lanes it counts (`schnorr.CHALLENGE_LANES`).
+the lanes of its `schnorr.core` span under a profiler session.
 
 On a card (marked `card`, skipped without one): the same batch tiled to
 16,384 lanes, a block of the benchmark's `verify.taproot`, through the
@@ -22,6 +22,7 @@ lane's challenge hashed by the kernel.  Run there with `python -m pytest
 
 import csv
 import os
+import time
 
 import numpy as np
 import pytest
@@ -29,7 +30,9 @@ import torch
 
 import taproot_ref as ref
 from secp256k1_tpu_torch.models import bitcoin, schnorr
+from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import errors as ec
+from secp256k1_tpu_torch.utils import profiling
 
 # One intra-op thread: tier-1 runs several pytest workers on one host,
 # and a thread pool of the cores' size in each would oversubscribe it.
@@ -272,15 +275,28 @@ def test_schnorr_verify_is_ok_of_the_status_helper():
                            for p, d, s in zip(pubs, digests, sig64)]
 
 
+def _cores(call):
+    """call() under a profiler session: its answer and its `schnorr.core`
+    spans."""
+    t0 = time.perf_counter()
+    with torch.profiler.profile():
+        got = call()
+    return got, [r for r in profiling.spans()
+                 if r.name == "schnorr.core" and r.t0 >= t0]
+
+
 def test_challenge_lanes_count_the_host_on_the_cpu(checked):
     """On the CPU every lane's challenge is the plain version's: the one
-    batch again adds its lanes under "host" and none under "device"."""
+    batch again is one `schnorr.core` span of all its lanes, with no
+    device time, and one plain call of the challenge hash."""
     lanes, _, want = checked
-    before = dict(schnorr.CHALLENGE_LANES)
-    got = bitcoin.verify_taproot_batch_arrays(*lanes.arrays(), device=CPU)
+    plain = K.PLAIN_CALLS["bip340_challenge"]
+    got, cores = _cores(lambda: bitcoin.verify_taproot_batch_arrays(
+        *lanes.arrays(), device=CPU))
     assert np.array_equal(got, want)
-    assert schnorr.CHALLENGE_LANES == dict(
-        before, host=before["host"] + len(lanes.pubs))
+    assert [(r.lanes, r.device_ms) for r in cores] == \
+        [(len(lanes.pubs), None)]
+    assert K.PLAIN_CALLS["bip340_challenge"] == plain + 1
 
 
 @pytest.fixture
@@ -297,20 +313,23 @@ BLOCK_LANES = 16384
 def test_card_replayed_graph_equals_the_reference(card):
     """The one batch, every case and corruption kind, tiled to a block of
     16,384 lanes: a first call (capture or replay), then one that replays
-    the core's graph, both with the reference's statuses, and each lane's
-    challenge counted under "device"."""
+    the core's graph, both with the reference's statuses, each call one
+    launch of the challenge kernel, the second's `schnorr.core` span of
+    every lane "replayed"."""
     lanes = _build()
     arrays = lanes.arrays()
     want = ref.statuses(*arrays, key_logs=lanes.logs)
     pick = np.arange(BLOCK_LANES) % len(lanes.pubs)
     block = [a[pick] for a in arrays]
-    before = dict(schnorr.CHALLENGE_LANES)
+    launches = K.LAUNCHES["bip340_challenge"]
     first = bitcoin.verify_taproot_batch_arrays(*block, device=card)
     graphs = dict(schnorr.VERIFY_GRAPHS)
-    second = bitcoin.verify_taproot_batch_arrays(*block, device=card)
+    second, cores = _cores(lambda: bitcoin.verify_taproot_batch_arrays(
+        *block, device=card))
     assert schnorr.VERIFY_GRAPHS == dict(
         graphs, replayed=graphs["replayed"] + 1)
     assert np.array_equal(first, want[pick])
     assert np.array_equal(second, want[pick])
-    assert schnorr.CHALLENGE_LANES == dict(
-        before, device=before["device"] + 2 * BLOCK_LANES)
+    assert [(r.lanes, r.how) for r in cores] == [(BLOCK_LANES, "replayed")]
+    assert cores[0].device_ms > 0
+    assert K.LAUNCHES["bip340_challenge"] == launches + 2

@@ -12,6 +12,8 @@ runs it: `python -m pytest --noconftest -p no:cacheprovider -m card
 tests/test_torch_xmd.py`.  Every comparison is exact.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ import torch
 from secp256k1_tpu_torch.models import h2c
 from secp256k1_tpu_torch.ops.cuda import kernels as K
 from secp256k1_tpu_torch.utils import batching as bt
+from secp256k1_tpu_torch.utils import profiling
 
 DST = b"QUUX-V01-CS02-with-secp256k1_XMD:SHA-256_SSWU_RO_"
 # A 255-byte DST (the longest hashed as it is) and an oversize one, which
@@ -89,15 +92,20 @@ def test_card_expand_xmd_equals_plain_at_every_length(card, dst):
 def test_card_arrays_equal_the_cpu_path(card, suite):
     """The arrays entry point on the card and on the CPU: the same points
     and flags for 300 messages of the mix; one expansion launch, its
-    shape (lanes, row width), and the messages in XMD_LANES["device"]."""
+    shape (lanes, row width), and the messages in the `h2c.core` span of
+    a profiler session, timed on the card."""
     arrays = h2c.hash_to_curve_batch_arrays if suite == "RO" \
         else h2c.encode_to_curve_batch_arrays
     rows, lens = _mix(300, 7)
-    before, launches = dict(h2c.XMD_LANES), K.LAUNCHES["expand_xmd"]
+    launches = K.LAUNCHES["expand_xmd"]
     shapes = K.SHAPES.get(("expand_xmd", 512, 517), 0)
-    pts, ident = arrays(rows, DST, lens)
+    t0 = time.perf_counter()
+    with torch.profiler.profile():
+        pts, ident = arrays(rows, DST, lens)
     assert K.LAUNCHES["expand_xmd"] == launches + 1
     assert K.SHAPES[("expand_xmd", 512, 517)] == shapes + 1
-    assert h2c.XMD_LANES["device"] == before["device"] + 300
+    cores = [r for r in profiling.spans()
+             if r.name == "h2c.core" and r.t0 >= t0]
+    assert [r.lanes for r in cores] == [300] and cores[0].device_ms > 0
     want = arrays(rows, DST, lens, device="cpu")
     assert np.array_equal(pts, want[0]) and np.array_equal(ident, want[1])
