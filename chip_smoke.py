@@ -128,12 +128,17 @@ the run with a non-zero exit code:
      device-busy share of the wall time;
    every kernel launch of the ECDH, switch, MSM and hash-to-curve arrays
    paths is then held bit-exact against its plain version on the
-   operands it was given;
+   operands it was given (those paths start with no CUDA graph kept, so
+   each key's first call runs eagerly and is recorded; a kernel launched
+   only in replays fails the run);
 5. throughput: verify/s of `_verify_impl` from planes and end to end (native
    DER parse); sign/s end to end and of `_sign_e2e_core` (its DRBG kernel
    included), beside the native host DRBG's time; the sign core's graph
    against its eager body at every width from 16 to 65,536 lanes, with and
-   without extra data: equal outputs, ms of each; recover/s; keyed
+   without extra data: equal outputs, ms of each; the ECDSA verify stage's
+   graph against the eager stage at 2^16, 2^17, 2^18 and 2^20 lanes (the
+   widest two above `VERIFY_GRAPH_MAX_LANES`, captured only here): equal
+   statuses, the device memory each graph keeps, ms of each; recover/s; keyed
    verify/s; Schnorr sign/s and verify/s; MSM points/s at 2^16, 2^20 and
    2^22 points and the bucket kernel's share of the 2^20 call; ECDH/s end
    to end and of `_ecdh_e2e_core` under each GLV engine; the verify and
@@ -1848,6 +1853,8 @@ def run_path(label, kernels, fn, replay=(), expect=None):
     operands."""
     from secp256k1_tpu_torch.ops.cuda import kernels as K
     expect = {"mod_pow2k": 0, **(expect or {})}     # no path launches it
+    if replay:
+        drop_graphs()
     with recording(replay) as calls:
         K.reset_counts()
         out = fn()
@@ -1857,6 +1864,10 @@ def run_path(label, kernels, fn, replay=(), expect=None):
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         fail(f"path {label}: kernels not launched: {missing}")
+    unheld = [k for k in replay if launches[k] and not calls[k]]
+    if unheld:
+        fail(f"path {label}: {unheld} launched only in graph replays, so "
+             f"nothing of theirs was held against the plain versions")
     if any(plain.values()):
         fail(f"path {label}: plain versions called: {plain}")
     chains, one_lane = {}, {}
@@ -1881,6 +1892,15 @@ def run_path(label, kernels, fn, replay=(), expect=None):
         f"launches {one_lane}")
     replay_plain(label, calls)
     return out
+
+
+def drop_graphs():
+    """Forget every core's CUDA graphs, so that the next call of each key
+    captures: its eager first run is what `recording` keeps."""
+    from secp256k1_tpu_torch.models import ecdsa, schnorr
+    for cache in (ecdsa._SIGN_CACHE, ecdsa._ECDSA_VERIFY_CACHE,
+                  schnorr._VERIFY_CACHE):
+        cache.graphs.clear()
 
 
 def check_statuses(label, got, expected):
@@ -2507,6 +2527,81 @@ def signing_throughput(signers, ecdsa_out, schnorr_out, device):
 
 
 SIGN_GRAPH_WIDTHS = tuple(1 << k for k in range(4, 17))
+
+
+VERIFY_GRAPH_WIDTHS = (1 << 16, 1 << 17, 1 << 18, 1 << 20)
+
+
+def stage_planes(pubs, digests, sigs, lens, device):
+    """The planes `verify_batch_arrays` gives the ECDSA verify stage
+    (`ecdsa._verify_stage`) for these rows, low s rejected."""
+    from secp256k1_tpu_torch.models import ecdsa
+    got = []
+    stage = ecdsa._verify_stage
+    ecdsa._verify_stage = lambda planes, reject_malleable: got.append(planes)
+    try:
+        r, s, host = ecdsa._e2e_host_parse(pubs, sigs, lens)
+        ecdsa._e2e_dispatch(pubs, digests, r, s, host, True, device)
+    finally:
+        ecdsa._verify_stage = stage
+    return got[0]
+
+
+def verify_graph_checks(triples, rng, hc, device):
+    """The ECDSA verify stage from byte planes (33-byte keys, the corrupted
+    lanes of `build_batch`, low s) at each of VERIFY_GRAPH_WIDTHS lanes:
+    the eager stage's statuses as expected; a graph's answer (a replay)
+    equal to them; the device memory its graph keeps (reserved bytes after
+    the capture less before, the caching allocator emptied around it),
+    above `VERIFY_GRAPH_MAX_LANES` too, raised for that one capture and the
+    graph dropped after; and the host milliseconds of one synchronised
+    call of the graph and of the eager stage, median of 7."""
+    from secp256k1_tpu_torch.models import ecdsa
+    widest = ecdsa.VERIFY_GRAPH_MAX_LANES
+    cache = ecdsa._ECDSA_VERIFY_CACHE
+    for width in VERIFY_GRAPH_WIDTHS:
+        pubs, digests, sigs, lens, expected = build_batch(
+            triples, width, False, rng, hc)
+        planes = stage_planes(pubs, digests, sigs, lens, device)
+
+        def eager():
+            return ecdsa._verify_stage_body(ecdsa._verify_impl, True,
+                                            *planes)[0]
+        label = f"verify graph: {width:7d} lanes"
+        check_statuses(label, eager().cpu().numpy(), expected)
+        ecdsa.VERIFY_GRAPH_MAX_LANES = max(widest, width)
+        try:
+            key = ecdsa._verify_graph_key(planes, True)
+            cache.graphs.pop(key, None)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(device)
+            ecdsa._verify_stage(planes, True)                # captures
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            pool = torch.cuda.memory_reserved(device) - before
+            replayed = cache.counts["replayed"]
+            got = ecdsa._verify_stage(planes, True)
+            if cache.counts["replayed"] != replayed + 1:
+                fail(f"{label}: no replay")
+            if not torch.equal(got, eager()):
+                fail(f"{label}: the replay differs from the eager stage")
+            graph = wall_ms(lambda: ecdsa._verify_stage(planes, True), 7)
+        finally:
+            ecdsa.VERIFY_GRAPH_MAX_LANES = widest
+            if width > widest:
+                cache.graphs.pop(key, None)
+        plain = wall_ms(eager, 7)
+        note = "" if width <= widest else ", eager on the path"
+        say(f"{label}: the replay equals the eager stage; its graph keeps "
+            f"{pool} B ({pool / width:.0f} B a lane{note}); "
+            f"one call, graph {graph[0]:.3f} ms (range {graph[1]:.3f}-"
+            f"{graph[2]:.3f}), eager {plain[0]:.3f} ms (range "
+            f"{plain[1]:.3f}-{plain[2]:.3f}): {plain[0] / graph[0]:.2f}x")
+    torch.cuda.empty_cache()
+    say(f"verify graph: ECDSA_VERIFY_GRAPHS {ecdsa.ECDSA_VERIFY_GRAPHS}, "
+        f"{len(cache.graphs)} graphs kept, device memory reserved "
+        f"{torch.cuda.memory_reserved(device)} B")
 
 
 def sign_graph_checks(signers, rng, device):
@@ -3648,6 +3743,8 @@ def main():
     verify_ms = throughput(triples, arrays, device)
     sign_planes = signing_throughput(signers, ecdsa_out, schnorr_out, device)
     sign_graph_checks(signers, np.random.default_rng(DRBG_SEED + 1), device)
+    verify_graph_checks(triples, np.random.default_rng(SEED + 12), curve.hc,
+                        device)
     msm_throughput(msm_data, rng, res["msm_bucket_accumulate_all"]["ms"])
     ecdh_planes = engine_throughput(ecdh_batch, triples, sign_planes, device)
     h2c_planes = slice_throughput(h2c_batch, consensus, arrays, device)

@@ -10,7 +10,8 @@ kernel, the sign core's first launch), for `sign_batch_arrays` and for
 computes k*G with the constant-time fixed-base kernel (the nonce is
 secret); verify and recover use the GLV and public-digit fixed-base
 kernels.  On the GPU the sign core's first candidate runs as one CUDA
-graph a width, captured at its first call (`_sign_e2e_core`).
+graph a width, captured at its first call (`_sign_e2e_core`), and so does
+the verify stage from byte planes (`_verify_stage`).
 
 Entry points take `device=None`, which means the GPU, and raise when there
 is none; the CPU runs only when the caller passes `device="cpu"`.  A keyed
@@ -19,6 +20,7 @@ is none; the CPU runs only when the caller passes `device="cpu"`.  A keyed
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -82,8 +84,8 @@ def _verify_impl(qx, qy, e, r, s):
     return _status_where(bad_rs, ec.ERR_INVALID_SIGNATURE, st)
 
 
-# The name the sharded verify calls (the JAX package's jit of _verify_impl;
-# eager PyTorch has nothing to compile).
+# The name the sharded verify and the verify stage's graph call (the JAX
+# package's jit of _verify_impl; eager PyTorch has nothing to compile).
 _verify_core = _verify_impl
 
 
@@ -111,21 +113,10 @@ def _verify_e2e_core(want_odd, pub_x_bytes, e_bytes, r_bytes, s_bytes,
                      reject_malleable=False, host_status=None):
     """Verify from raw byte planes with SEC1-compressed keys: decompress,
     reduce the digest, optional low-s rejection, then the SEC1 core.
-    `host_status` (parse failures) takes precedence."""
-    on_card = pub_x_bytes.is_cuda
-    with profiling.span("verify.decompress", on_card):
-        pub, pub_status = s11n.decompress(want_odd, pub_x_bytes)
-    e, r, s = _scalars(e_bytes, r_bytes, s_bytes)
-    st = _verify_core_span(pub, e, r, s, on_card)
-    return _finish(st, pub_status, s, reject_malleable, host_status)
-
-
-def _verify_core_span(pub, e, r, s, on_card: bool):
-    """`_verify_impl` inside the `verify.core` span (its `lanes` the
-    planes' width)."""
-    with profiling.span("verify.core", on_card) as sp:
-        sp.lanes = pub.x.shape[-1]
-        return _verify_impl(pub.x, pub.y, e, r, s)
+    `host_status` (parse failures) takes precedence.  Runs as
+    `_verify_stage` does."""
+    return _verify_stage((want_odd, None, pub_x_bytes, None, e_bytes,
+                          r_bytes, s_bytes, host_status), reject_malleable)
 
 
 def _verify_e2e_mixed_core(want_odd, is_unc, x_bytes, y_bytes, e_bytes,
@@ -135,15 +126,83 @@ def _verify_e2e_mixed_core(want_odd, is_unc, x_bytes, y_bytes, e_bytes,
     take the uncompressed decode, others decompress from x.  Both decodes
     run on every lane (uniform schedule); the result is a per-lane
     select."""
-    on_card = x_bytes.is_cuda
-    with profiling.span("verify.decompress", on_card):
-        pub_c, st_c = s11n.decompress(want_odd, x_bytes)
-        pub_u, st_u = s11n.decode_uncompressed(x_bytes, y_bytes)
-        pub = pt.select(is_unc, pub_u, pub_c)
-        pub_status = torch.where(is_unc, st_u, st_c)
+    return _verify_stage((want_odd, is_unc, x_bytes, y_bytes, e_bytes,
+                          r_bytes, s_bytes, host_status), reject_malleable)
+
+
+def _verify_stage(planes, reject_malleable):
+    """The device stage over `planes` (want_odd, is_unc or None, x, y or
+    None, e, r and s bytes, host status or None) inside the `verify.core`
+    span, which covers the whole stage however it runs (its `lanes` the
+    width; on a card `how`: captured, replayed or eager): through a CUDA
+    graph (`graphs.Cache.run`) where `_verify_graph_key` gives the planes
+    one, else eagerly, the core called as `_verify_impl`.  Returns the
+    status plane."""
+    on_card = planes[2].is_cuda
+    key = _verify_graph_key(planes, reject_malleable)
+    with profiling.span("verify.core", on_card) as sp:
+        sp.lanes = planes[2].shape[-1]
+        if key is not None:
+            out, sp.how = _ECDSA_VERIFY_CACHE.run(
+                key, functools.partial(_verify_stage_body, _verify_core,
+                                       reject_malleable), planes)
+            return out[0]
+        if on_card:
+            ECDSA_VERIFY_GRAPHS["eager"] += 1
+            sp.how = "eager"
+        return _verify_stage_body(_verify_impl, reject_malleable, *planes)[0]
+
+
+# How the ECDSA verify stage's calls on the GPU ran (`graphs.Cache.counts`).
+_ECDSA_VERIFY_CACHE = graphs.Cache()
+ECDSA_VERIFY_GRAPHS = _ECDSA_VERIFY_CACHE.counts
+# The widest stage that gets a graph.  Each key keeps its graph's memory
+# pool for the life of the process: on an H100, 0.71 GB at 65,536 lanes
+# and 1.83 GB at 131,072, where the graph's call takes 0.43 and 0.75 of the
+# eager stage's; at 2^18 lanes 2.55 GB for 0.90, at 2^20 10.2 GB for 0.99,
+# so a wider stage runs eagerly.
+VERIFY_GRAPH_MAX_LANES = 1 << 17
+
+
+def _verify_graph_key(planes, reject_malleable):
+    """The key of the CUDA graph that verifies these planes, or None where
+    the stage runs eagerly: planes off the GPU, byte planes that are not
+    all contiguous uint8 [32, B] on one device (`graphs.plane_width`),
+    flags and statuses that are not contiguous bool and int32 [B] there
+    (`graphs.lanes_fit`), or B above `VERIFY_GRAPH_MAX_LANES`.  The key
+    holds what the stage's launches depend on: the device, the width B,
+    the mixed 33/65-byte layout, `reject_malleable`, whether there is a
+    host status plane, and the GLV and fixed-base switches in force."""
+    want_odd, is_unc, x_bytes, y_bytes, e_bytes, r_bytes, s_bytes, host = \
+        planes
+    width = graphs.plane_width((x_bytes, y_bytes, e_bytes, r_bytes, s_bytes))
+    if width is None or width > VERIFY_GRAPH_MAX_LANES:
+        return None
+    device = x_bytes.device
+    if not (graphs.lanes_fit((want_odd, is_unc), width, device, torch.bool)
+            and graphs.lanes_fit((host,), width, device, torch.int32)):
+        return None
+    return (device, width, is_unc is not None, bool(reject_malleable),
+            host is not None, *graphs.switches())
+
+
+def _verify_stage_body(core, reject_malleable, want_odd, is_unc, x_bytes,
+                       y_bytes, e_bytes, r_bytes, s_bytes, host_status):
+    """The device stage as a 1-tuple: decompress (where is_unc is a plane,
+    the uncompressed decode too and a per-lane select), `_scalars`,
+    `core`, `_finish`.  The eager stage passes `_verify_impl`, as the
+    module holds it when called; a graph captures `_verify_core`, so a
+    wrapper installed over `_verify_impl` (a profiling harness's CUDA
+    events) is never captured."""
+    with profiling.span("verify.decompress", x_bytes.is_cuda):
+        pub, pub_status = s11n.decompress(want_odd, x_bytes)
+        if is_unc is not None:
+            pub_u, st_u = s11n.decode_uncompressed(x_bytes, y_bytes)
+            pub = pt.select(is_unc, pub_u, pub)
+            pub_status = torch.where(is_unc, st_u, pub_status)
     e, r, s = _scalars(e_bytes, r_bytes, s_bytes)
-    st = _verify_core_span(pub, e, r, s, on_card)
-    return _finish(st, pub_status, s, reject_malleable, host_status)
+    st = core(pub.x, pub.y, e, r, s)
+    return (_finish(st, pub_status, s, reject_malleable, host_status),)
 
 
 def _verify_keyed_core(qx_tab, qy_tab, idx, e_bytes, r_bytes, s_bytes,
@@ -229,7 +288,7 @@ def _sign_graph_key(d_bytes, e_bytes, extra_bytes, attempt: int):
     if width is None:
         return None
     return (d_bytes.device, width, extra_bytes is not None,
-            tbl.base_signed_enabled(), tbl.base_window())
+            *graphs.switches(glv=False))
 
 
 def _sign_from_candidates(k_bytes, e_bytes, d_bytes):
@@ -450,8 +509,9 @@ def _verify_arrays(pubs_sec1, digests, sigs, lens, reject_malleable,
     """`verify_batch_arrays` on a resolved device, the rows read by the
     native parser `parse` (arguments and statuses of
     `native.asn1_sig_parse_batch`): the `verify.call` root with its
-    `verify.parse`, `verify.planes`, `verify.decompress`, `verify.core`
-    and `verify.readback` spans."""
+    `verify.parse`, `verify.planes`, `verify.core` (the device stage,
+    `verify.decompress` inside it where the stage runs eagerly) and
+    `verify.readback` spans."""
     n = pubs_sec1.shape[0]
     if pubs_sec1.shape[1] not in (33, 65) or digests.shape[0] != n \
             or digests.shape[1] < 32 or sigs.shape[0] != n:

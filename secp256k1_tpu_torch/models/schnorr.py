@@ -255,9 +255,7 @@ def _verify_graph_key(planes):
     if width is None or msg.device != planes[0].device \
             or graphs.plane_width([msg], rows=length) != width:
         return None
-    return (planes[0].device, width, length, K.mega_enabled(),
-            K.mega_signed_enabled(), tbl.base_signed_enabled(),
-            tbl.base_window())
+    return (planes[0].device, width, length, *graphs.switches())
 
 
 def _verify_body_tuple(pub_x_bytes, r_bytes, s_bytes, msg_bytes):

@@ -7,13 +7,25 @@ planes; every later call with that key copies its planes in, replays the
 graph on the current stream and gets copies of the outputs.  A replay is
 one launch where the eager core is hundreds of PyTorch ops, each paid for
 in host dispatch.
+
+A graph's static planes and outputs are shared by every caller of its key,
+so one lock holds each call's copy-in, replay and copy-out (and each
+capture) together, and a replay waits for the device to finish the last
+one's copy-out, whatever stream either ran on: threads that verify at the
+same key each get their own answers.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from ..ops import table as tbl
 from ..ops.cuda import kernels as K
+
+# Held by `Cache.run` across a call of any core's graph.
+_LOCK = threading.Lock()
 
 
 class Cache:
@@ -31,7 +43,7 @@ class Cache:
         (its first element the device); how the call ran, "captured" or
         "replayed"): the first call with a key answers from an eager run
         on a side stream, then captures."""
-        with torch.cuda.device(key[0]):
+        with _LOCK, torch.cuda.device(key[0]):
             graph = self.graphs.get(key)
             if graph is not None:
                 self.counts["replayed"] += 1
@@ -66,6 +78,7 @@ class Captured:
     def __init__(self, body, planes):
         self.planes = [None if t is None else torch.empty_like(t)
                        for t in planes]
+        self.copied_out = torch.cuda.Event()   # the last replay's copy-out
         launches, shapes = dict(K.LAUNCHES), dict(K.SHAPES)
         self.graph = torch.cuda.CUDAGraph()
         try:
@@ -83,6 +96,7 @@ class Captured:
             K.SHAPES.update(shapes)
 
     def replay(self, planes):
+        torch.cuda.current_stream().wait_event(self.copied_out)
         for static, t in zip(self.planes, planes):
             if static is not None:
                 static.copy_(t)
@@ -91,7 +105,9 @@ class Captured:
             K.LAUNCHES[k] += n
         for k, n in self.shapes.items():
             K.SHAPES[k] = K.SHAPES.get(k, 0) + n
-        return tuple(t.clone() for t in self.out)
+        out = tuple(t.clone() for t in self.out)
+        self.copied_out.record()
+        return out
 
 
 def plane_width(planes, rows: int = 32):
@@ -109,3 +125,22 @@ def plane_width(planes, rows: int = 32):
                               or not t.is_contiguous()):
             return None
     return width
+
+
+def lanes_fit(planes, width: int, device, dtype) -> bool:
+    """Whether `planes` (None planes skipped) are all contiguous `dtype`
+    [width] on `device`: the per-lane flags and statuses beside a core's
+    byte planes, which the core's graph copies in as they are."""
+    return all(t is None or (t.device == device and t.dtype == dtype
+                             and tuple(t.shape) == (width,)
+                             and t.is_contiguous())
+               for t in planes)
+
+
+def switches(glv: bool = True) -> tuple:
+    """The engine switches in force that a core's launches depend on, for
+    its graph key: the fixed-base kernel's (`table.base_signed_enabled`,
+    `table.base_window`), after the GLV kernels' (`kernels.mega_enabled`,
+    `kernels.mega_signed_enabled`) where `glv`."""
+    base = (tbl.base_signed_enabled(), tbl.base_window())
+    return (K.mega_enabled(), K.mega_signed_enabled(), *base) if glv else base

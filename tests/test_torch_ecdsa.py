@@ -21,6 +21,7 @@ from secp256k1_tpu.models import ecdsa as jecdsa
 from secp256k1_tpu_torch.models import codecs, ecdsa
 from secp256k1_tpu_torch.utils import errors as ec
 from secp256k1_tpu_torch.utils import hostcurve as hc
+from ecdsa_cases import big_r_triple
 from test_wycheproof import (SIG_FLAGS_ALWAYS_VALID, SIG_FLAGS_ASN1_ONLY,
                              SIG_FLAGS_MAY_REJECT_EARLY,
                              SIG_FLAGS_MUST_REJECT_EARLY,
@@ -179,28 +180,8 @@ def _sign(d, digest, k):
     return r, pow(k, n - 2, n) * (e + r * d) % n
 
 
-def _big_r_triple():
-    """(Q, digest, r, s) whose R = u1*G + u2*Q has x_R in [n, p): only the
-    r + n < p comparison accepts it (r = x_R - n)."""
-    n = hc.N
-    x = n
-    while True:
-        x += 1
-        big_r = hc.lift_x(x, False)
-        if big_r is not None:
-            break
-    r = x - n
-    digest = hashlib.sha256(b"x_R >= n").digest()
-    e = int.from_bytes(digest, "big") % n
-    s = 0x1234567890ABCDEF
-    r_inv = pow(r, n - 2, n)
-    q = hc.add(hc.mul(s * r_inv % n, big_r), hc.neg(hc.mul(e * r_inv % n,
-                                                           hc.G)))
-    return q, digest, r, s
-
-
 def test_verify_impl_r_plus_n_branch():
-    q, digest, r, s = _big_r_triple()
+    q, digest, r, s = big_r_triple()
     bad = hashlib.sha256(b"other").digest()
     got = ecdsa.verify_raw_batch_status(
         [q, q, q, q], [digest, bad, digest, digest],
@@ -239,7 +220,7 @@ def special():
         if i == 8:                                  # compressed, nonzero pad
             cases[-1][0] = pub + b"\x01" + bytes(31)
             cases[-1][3] = cases[-1][4] = ec.ERR_INVALID_PUBLIC_KEY
-    q, digest, r, s = _big_r_triple()
+    q, digest, r, s = big_r_triple()
     cases.append([hc.encode_point(q), digest + bytes(16),
                   codecs.build_asn1_signature(r, s), ec.OK,
                   ec.ERR_MALLEABLE if s > n // 2 else ec.OK])

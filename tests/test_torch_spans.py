@@ -18,14 +18,15 @@
 
 On a card (marked `card`, skipped without one): no record from inside a
 graph capture; the second call of a width reads `how` = "replayed" on its
-`sign.core` and `schnorr.core`, with device milliseconds; the Chrome trace
-of one signing call holds every span on the host's row beside the
-kernels, on their clock.  Run there with `python -m pytest --noconftest -p
-no:cacheprovider -m card tests/test_torch_spans.py`: nothing here imports
-JAX.
+`sign.core`, `verify.core` and `schnorr.core`, with device milliseconds;
+the Chrome trace of one signing call holds every span on the host's row
+beside the kernels, on their clock.  Run there with `python -m pytest
+--noconftest -p no:cacheprovider -m card tests/test_torch_spans.py`:
+nothing here imports JAX.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -305,17 +306,21 @@ def test_card_graph_capture_records_nothing(card):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("path", ["sign", "schnorr"])
+@pytest.mark.parametrize("path", ["sign", "verify", "schnorr"])
 def test_card_second_call_reads_replayed(card, path):
     """The second call of a width replays the core's graph: its `.core`
-    spans read `how` = "replayed" and device milliseconds."""
+    spans read `how` = "replayed" and device milliseconds (records of
+    earlier sessions in the buffer left out)."""
     call = {"sign": lambda: _sign(card, 512),
+            "verify": lambda: _verify(card, 512),
             "schnorr": lambda: _schnorr(card, 512)}[path]
     call()
+    t0 = time.perf_counter()
     with torch.profiler.profile():
         call()
     torch.cuda.synchronize()
-    cores = [r for r in profiling.spans() if r.name == f"{path}.core"]
+    cores = [r for r in profiling.spans()
+             if r.name == f"{path}.core" and r.t0 >= t0]
     assert cores and all(r.how == "replayed" for r in cores)
     assert all(r.device_ms is not None and r.device_ms > 0 for r in cores)
 
